@@ -1,0 +1,87 @@
+"""Package rules of the port: ``repro_torch`` and its chip scripts import
+neither ``jax`` nor anything of ``repro``; importing the port loads no JAX;
+the entry points default to the card and raise where there is none;
+``chip_smoke.py`` fails without a card and outside a checkout."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+_FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_profile.py"]
+
+
+def _absolute_imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = [m for m in _absolute_imports(path)
+           if m.split(".")[0] in _FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _run(args, cwd=ROOT, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_importing_the_port_loads_no_jax():
+    res = _run(["-c", "import sys, repro_torch, repro_torch.kernels.ops, "
+                "repro_torch.core.blocksort, repro_torch.configs, "
+                "repro_torch.data, repro_torch.runtime; "
+                "bad = [m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'repro')]; print(bad); "
+                "sys.exit(1 if bad else 0)"])
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_default_to_the_card():
+    """Here, where there is no card, the default device raises; on a card
+    the same call sorts."""
+    import numpy as np
+    from repro_torch import bucketed_sort_words, bucketize_packed, \
+        sorted_packed
+    words = ["pear", "fig", "apple", "kiwi"]
+    keys = np.array([[1], [2]], np.uint32)
+    if torch.cuda.is_available():
+        assert bucketed_sort_words(words) == ["fig", "kiwi", "pear", "apple"]
+        return
+    for call in (lambda: bucketed_sort_words(words),
+                 lambda: bucketed_sort_words([]),
+                 lambda: sorted_packed(keys),
+                 lambda: bucketize_packed(keys)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_card_or_outside_a_checkout(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    res = _run([str(alone)], cwd=tmp_path, env_extra={"PYTHONPATH": ""})
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    if not torch.cuda.is_available():
+        res = _run([str(ROOT / "chip_smoke.py")])
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
