@@ -14,6 +14,16 @@ For the paper's DS1 and DS2 (``configs/paper_sort.py``) it prints:
     kernel, the device's busy time (the union of its kernel, copy and set
     intervals) and its idle share of the traced window.
 
+For the run tier it prints:
+
+  * the crossover of the run merges: ``merge_runs_lex`` with the k-way
+    kernel against the 'take' tier, and ``merge_sorted_lex`` with the
+    merge-path kernel against the 'packed' tier, over merges of 2, 8 and
+    64 runs of 1,024 to 262,144 words in all (medians of 3 host-clock
+    calls ended by a synchronize, after one warm call);
+  * a trace of one ``chunked_sort_words`` of DS2 at chunk 4096 with each
+    merge engine, read as above.
+
 It exits non-zero without a card. Nothing of ``jax`` or ``repro`` is
 imported.
 """
@@ -27,7 +37,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from chip_smoke import nvidia_smi  # noqa: E402  (beside this script)
+from chip_smoke import ext_runs, nvidia_smi  # noqa: E402  (beside this script)
 
 RUNS = 5
 TRACED = 3
@@ -56,10 +66,82 @@ def busy_us(events) -> float:
     return total
 
 
-def profile(name, words, device):
+def trace(name, fn, calls):
+    """Trace ``calls`` calls of ``fn`` (each ended by a synchronize) and
+    print the window, the device's busy time and idle share, and device
+    time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_events:
+        print(f"[trace] {name}: the profiler saw no device activity; device "
+              "busy time and idle share not measured")
+        return
+    by_name = {}
+    for e in dev_events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    busy = busy_us(dev_events)
+    print(f"[trace] {name}: {calls} call(s), window "
+          f"{wall_us / calls:.1f} us per call, device busy "
+          f"{busy / calls:.1f} us per call, idle share "
+          f"{1 - busy / wall_us:.4f}, {len(dev_events) // calls} device "
+          "events per call")
+    for kname, (t, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:12]:
+        print(f"[trace] {name}:   {t / calls:10.1f} us/call "
+              f"{n // calls:6d} x/call  {kname[:100]}")
+
+
+def crossover(device):
+    """Kernel engines against the torch tiers over merge sizes and k."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.data import synthetic_words
+    from repro_torch.kernels import ops
+    keys = packing.pack_words(synthetic_words(1 << 18, seed=1))
+    for total in (1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18):
+        for k in (2, 8, 64):
+            if total // k < 16:
+                continue
+            ext, n_cmp = ext_runs(keys[:total], device, chunk=total // k)
+            row = {}
+            for engine in ("take", "kernel"):
+                def call():
+                    ops.merge_runs_lex(ext, engine=engine, n_cmp=n_cmp)
+                    torch.cuda.synchronize()
+                row[f"kway {engine}"] = median_ms(call, runs=3, warmup=1)
+            if k == 2:
+                for engine in ("packed", "kernel"):
+                    def call():
+                        ops.merge_sorted_lex(*ext, engine=engine,
+                                             n_cmp=n_cmp)
+                        torch.cuda.synchronize()
+                    row[f"pair {engine}"] = median_ms(call, runs=3, warmup=1)
+            print(f"[crossover] total {total}, k {k}: " + ", ".join(
+                f"{name} {ms:.3f} ms" for name, ms in row.items()))
+
+
+def profile_run_tier(words, device):
+    from repro_torch.pipeline import chunked_sort_words
+    for engine in ("auto", "tournament"):
+        def call():
+            chunked_sort_words(words, chunk_size=4096, merge_engine=engine,
+                               device=device)
+        call()
+        trace(f"DS2 chunked, merge_engine={engine}", call, 1)
+
+
+def profile(name, words, device):
+    import torch
     from repro_torch import sorted_packed, to_numpy
     from repro_torch.core import packing
 
@@ -77,29 +159,7 @@ def profile(name, words, device):
           f"sorted_packed {dev_ms:.3f} ms, to_numpy+unpack_words "
           f"{unpack_ms:.3f} ms (medians of {RUNS})")
 
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(TRACED):
-            device_part()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev_events:
-        print(f"[trace] {name}: the profiler saw no device activity; device "
-              "busy time and idle share not measured")
-        return
-    by_name = {}
-    for e in dev_events:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    busy = busy_us(dev_events)
-    print(f"[trace] {name}: {TRACED} sorted_packed calls, window "
-          f"{wall_us / TRACED:.1f} us per call, device busy "
-          f"{busy / TRACED:.1f} us per call, idle share "
-          f"{1 - busy / wall_us:.4f}")
-    for kname, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        print(f"[trace] {name}:   {t / TRACED:10.1f} us/call "
-              f"{n // TRACED:4d} x/call  {kname[:100]}")
+    trace(f"{name} sorted_packed", device_part, TRACED)
 
 
 def main() -> int:
@@ -115,6 +175,8 @@ def main() -> int:
     for cfg in (DS1, DS2):
         profile(cfg.name, synthetic_words(cfg.n_words, seed=cfg.seed),
                 device)
+    crossover(device)
+    profile_run_tier(synthetic_words(DS2.n_words, seed=DS2.seed), device)
     print(nvidia_smi())
     return 0
 

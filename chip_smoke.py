@@ -7,21 +7,30 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
 
-  1. build — compile the four CUDA kernels from ``src/repro_torch/kernels/
-     csrc`` with ``nvcc`` for ``sm_90a`` and print ``-Xptxas -v``'s
-     registers, shared memory and spills per kernel;
-  2. kernels — run every kernel at the shapes the main path gives it, on
-     the main path's data and on adversarial inputs (sentinel-colliding
-     uint32, duplicate-heavy, float32 NaN/±0/±inf with a payload lane),
-     require its bits to equal its plain PyTorch version's on the card and
-     its output to be sorted (a chain of stable ``torch.sort`` passes is the
-     independent check), and time kernel, plain version and library call;
+  1. build — compile the six CUDA kernels from ``src/repro_torch/kernels/
+     csrc`` with ``nvcc`` for ``sm_90a``, one process per source, and print
+     ``-Xptxas -v``'s registers, shared memory and spills per kernel;
+  2. kernels — run every kernel at the shapes its path gives it, on the
+     path's data and on adversarial inputs (sentinel-colliding uint32,
+     duplicate-heavy, float32 NaN/±0/±inf with a payload lane; for the run
+     merges also empty and one-element runs and the 18-array tuple of
+     32-byte words), require its bits to equal its plain PyTorch version's
+     on the card and its output to be in order (for the row sorts a chain
+     of stable ``torch.sort`` passes is the independent check; for the run
+     merges the torch tier and the total-order contract), and time kernel,
+     plain version and library call or torch tier. The merge-path kernel
+     (B5) runs at the last tournament round of DS2 chunked at 4096 words,
+     the k-way kernel (B6) at DS2's 57 runs;
   3. main path — sort a 500-word chunk (OETS tier), a 3,000-word chunk
      (bitonic tier) and the paper's DS1 and DS2 (blocksort: bitonic + merge)
-     through ``bucketed_sort_words`` and ``sorted_packed``, with every launch
-     counter set to 0 just before and read just after; each result must
-     equal Python's shortlex ``sorted``, DS1's packed lanes must equal the
-     plain path's on the CPU, and all four counters must be non-zero.
+     through ``bucketed_sort_words`` and ``sorted_packed``; then the run
+     tier: ``chunked_sort_words`` of DS2 at chunk 4096 with the k-way merge
+     and with the tournament, and ``chunked_sort_packed`` of 1,048,576
+     synthetic words at chunk 16,384 with ``validate='full'``. Every launch
+     counter is set to 0 just before each run and read just after; each
+     result must equal Python's shortlex ``sorted``, DS1's packed lanes must
+     equal the plain path's on the CPU, and every kernel must have run on
+     its path.
 
 Then it prints the card's name and power limit as ``nvidia-smi`` gives them,
 one JSON line with every kernel's numbers, and last
@@ -50,6 +59,9 @@ NON_TENSOR_OPS_PER_S = 67e12
 KERNEL_ITERS = 20
 PLAIN_ITERS = 3
 E2E_RUNS = 5
+# the kernels of sorted_packed and bucketed_sort_words
+MAIN_PATH = ("oets_rows_lex", "bitonic_rows_lex", "distribute_rows",
+             "merge_adjacent_lex")
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -382,6 +394,193 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
                                             "bound_by")))
 
 
+def ext_runs(keys, device, chunk=4096):
+    """Packed words chunked at ``chunk`` and sorted on the card: the runs
+    the run tier merges, as extended tuples (compare lanes, then data
+    lanes), and the compare-lane count."""
+    from repro_torch.pipeline import sorted_run
+    runs = [sorted_run(keys[s:s + chunk], capacity=chunk, device=device)
+            for s in range(0, len(keys), chunk)]
+    ext = [tuple(r.cmp_lanes()) + tuple(r.lanes()) for r in runs]
+    return ext, len(ext[0]) - len(runs[0].lanes())
+
+
+def sorted_lanes_runs(kind, sizes, rng, device):
+    """Sorted runs of an adversarial ``kind`` on the card and the
+    compare-lane count to merge them with (None: pack them)."""
+    import numpy as np
+    import torch
+    from repro_torch import to_device
+    from repro_torch.core import packing
+    from repro_torch.pipeline import sorted_run
+    from repro_torch.pipeline.validate import order_bits_view
+    if kind == "words-32-bytes":
+        runs = []
+        for n in sizes:
+            words = ["".join(rng.choice(list("abcz"), int(ln)))
+                     for ln in rng.integers(1, 33, n)]
+            r = sorted_run(packing.pack_words(words, width=32), device=device)
+            runs.append(tuple(r.cmp_lanes()) + tuple(r.lanes()))
+        return runs, len(runs[0]) - 9
+    runs = []
+    for n in sizes:
+        if kind == "float":
+            f = rng.normal(scale=10.0, size=n).astype(np.float32)
+            pick = rng.random(n)
+            f[pick < 0.15] = np.nan
+            f[(pick >= 0.15) & (pick < 0.3)] = -0.0
+            f[(pick >= 0.3) & (pick < 0.45)] = 0.0
+            f[(pick >= 0.45) & (pick < 0.5)] = -np.inf
+            pats = np.array([0x7FC00001, 0xFFC00000, 0x7F800001, 0xFFFFFFFF],
+                            np.uint32).view(np.float32)
+            m = pick >= 0.9
+            f[m] = pats[rng.integers(0, len(pats), int(m.sum()))]
+            p = rng.integers(-3, 3, n).astype(np.int32)
+            order = np.lexsort((p, order_bits_view(f)))
+            runs.append((to_device(f[order], device),
+                         to_device(p[order], device)))
+            continue
+        v = rng.integers(0, 4 if kind == "dup_heavy" else 1 << 32, (3, n),
+                         dtype=np.uint64).astype(np.uint32)
+        if kind == "sentinel":
+            v[rng.random((3, n)) < 0.3] = 0xFFFFFFFF
+        order = np.lexsort(v[::-1])
+        runs.append(tuple(to_device(np.ascontiguousarray(l[order]), device)
+                          for l in v))
+    return runs, (3 if kind == "dup_heavy" else None)
+
+
+def check_merge_contract(name, got, runs):
+    """``got`` (stacked int32, the merged lanes) holds the runs' tuples bit
+    for bit and is sorted under the total order."""
+    import numpy as np
+    import torch
+    from repro_torch import to_numpy
+    from repro_torch.kernels import lex
+    from repro_torch.pipeline.validate import check_lanes_sorted
+    flat = torch.stack([torch.cat([lex.as_bits(r[l]) for r in runs])
+                        for l in range(len(runs[0]))])
+    if not torch.equal(lib_sort(flat[:, None], flat[:, None]),
+                       lib_sort(got[:, None], got[:, None])):
+        raise AssertionError(f"{name}: output is not a permutation of the "
+                             "input")
+    typed = [to_numpy(lex.from_bits(got[l].contiguous(), runs[0][l].dtype))
+             for l in range(len(runs[0]))]
+    check_lanes_sorted([np.asarray(t) for t in typed], what=name)
+
+
+def check_merge_kernel(kernel, label, fn, plain, args, block, runs=None):
+    """Kernel vs plain version on the same operands (bits); with ``runs``,
+    also the total-order contract. Returns the bit error and the output."""
+    import torch
+    got = fn(*args, block)
+    want = plain(*args, block)
+    torch.cuda.synchronize()
+    err = bits_err(got, want)
+    print(f"[kernels] {kernel.name} {label}: max_abs_err {err}")
+    if err:
+        raise AssertionError(f"{kernel.name} {label}: kernel and plain "
+                             "version differ")
+    if runs is not None:
+        check_merge_contract(f"{kernel.name} {label}", got, runs)
+    return err, got
+
+
+def phase_run_merges(report, device, ds2_keys):
+    """B5 and B6 at the run tier's own shapes, on adversarial runs, and
+    timed beside their plain versions and the torch tiers."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.kernels import keypack, kway_kernel as kk, lex, \
+        runmerge_kernel as rk
+    rng = np.random.default_rng(1)
+    ext, n_cmp = ext_runs(ds2_keys, device)
+    n_arr, k = len(ext[0]), len(ext)
+
+    # B6 at DS2's 57 runs of <= 4096
+    ops = kk.kway_operands(ext, n_cmp, block=kk.DEFAULT_KWAY_BLOCK)
+    blk = kk.DEFAULT_KWAY_BLOCK
+    err, got = check_merge_kernel(kk.KERNEL, f"DS2 {k} runs, {n_arr} arrays",
+                                  kk.kway_merge, kk.kway_merge_plain, ops, blk)
+    take = kk.merge_runs_kway_take(ext, n_cmp=n_cmp)
+    if bits_err(got, torch.stack([lex.as_bits(t) for t in take])):
+        raise AssertionError("merge_runs_kway: kernel and torch tier differ")
+    for kind, sizes in (("sentinel", (5000, 3000, 1, 2500)),
+                        ("dup_heavy", (4096,) * 9),
+                        ("empty and single", (0, 1, 0, 4096, 1, 700, 0)),
+                        ("words-32-bytes", (3000, 2000, 500)),
+                        ("float", (3000, 1, 2000))):
+        gen = "dup_heavy" if kind == "empty and single" else kind
+        runs, nc = sorted_lanes_runs(gen, sizes, rng, device)
+        runs = [r for r in runs if r[0].shape[0]]
+        e, _ = check_merge_kernel(kk.KERNEL, f"{kind} {sizes}", kk.kway_merge,
+                                  kk.kway_merge_plain,
+                                  kk.kway_operands(runs, nc), blk, runs)
+        err = max(err, e)
+    total = got.shape[1]
+    ms_engine = cuda_time(lambda i: kk.merge_runs_kway_kernel(
+        ext, n_cmp=n_cmp), 3, 1)
+    report.add(kk.KERNEL, err, shape=[n_arr, total], runs=k, block=blk,
+               ms=cuda_time(lambda i: kk.kway_merge(*ops, blk), KERNEL_ITERS),
+               plain_ms=cuda_time(lambda i: kk.kway_merge_plain(*ops, blk),
+                                  PLAIN_ITERS, 1),
+               torch_tier_ms=cuda_time(lambda i: kk.merge_runs_kway_take(
+                   ext, n_cmp=n_cmp), KERNEL_ITERS),
+               engine_ms=ms_engine, library_ms=None,
+               **bound(2 * n_arr * total * 4 + ops[2].numel() * 4,
+                       total * math.ceil(math.log2(k)) * n_cmp))
+
+    # B5 at the last tournament round of the same runs: the merge of runs
+    # [0, 32) against runs [32, 57), each side merged first
+    half = 1 << ((k - 1).bit_length() - 1)
+    a = kk.merge_runs_kway_take(ext[:half], n_cmp=n_cmp)
+    b = kk.merge_runs_kway_take(ext[half:], n_cmp=n_cmp)
+    blk = rk.DEFAULT_MERGE_BLOCK
+    ops = rk.merge_operands(a, b, n_cmp, block=blk)
+    err, got = check_merge_kernel(
+        rk.KERNEL, f"DS2 last round {a[0].shape[0]} + {b[0].shape[0]}, "
+        f"{n_arr} arrays", rk.runmerge, rk.runmerge_plain, ops, blk)
+    if bits_err(got, torch.stack([lex.as_bits(t) for t in take])):
+        raise AssertionError("merge_runs_lex: kernel and the k-way merge "
+                             "differ")
+    for kind, sizes in (("sentinel", (5000, 3000)),
+                        ("dup_heavy", (4096, 4000)),
+                        ("empty and single", (1, 5000)),
+                        ("single", (700, 1)),
+                        ("words-32-bytes", (3000, 2000)),
+                        ("float", (3000, 2000))):
+        gen = "dup_heavy" if kind in ("empty and single", "single") else kind
+        runs, nc = sorted_lanes_runs(gen, sizes, rng, device)
+        e, _ = check_merge_kernel(rk.KERNEL, f"{kind} {sizes}", rk.runmerge,
+                                  rk.runmerge_plain,
+                                  rk.merge_operands(*runs, nc), blk, runs)
+        err = max(err, e)
+        empty = tuple(x[:0] for x in runs[0])
+        out = rk.merge_runs_lex_kernel(empty, runs[1], nc)
+        if not all(x is y for x, y in zip(out, runs[1])):
+            raise AssertionError("merge_runs_lex: an empty run changed the "
+                                 "other")
+    total = got.shape[1]
+    report.add(rk.KERNEL, err, shape=[n_arr, total], block=blk,
+               ms=cuda_time(lambda i: rk.runmerge(*ops, blk), KERNEL_ITERS),
+               plain_ms=cuda_time(lambda i: rk.runmerge_plain(*ops, blk),
+                                  PLAIN_ITERS, 1),
+               torch_tier_ms=cuda_time(lambda i: keypack.merge_take_packed(
+                   a, b, n_cmp=n_cmp), KERNEL_ITERS),
+               engine_ms=cuda_time(lambda i: rk.merge_runs_lex_kernel(
+                   a, b, n_cmp=n_cmp), 3, 1),
+               library_ms=None,
+               **bound(2 * n_arr * total * 4 + ops[4].numel() * 4,
+                       total * n_cmp))
+    for name in (rk.KERNEL.name, kk.KERNEL.name):
+        row = report.rows[name]
+        print(f"[kernels] {name}: " + ", ".join(
+            f"{key} {row[key]}" for key in ("shape", "ms", "plain_ms",
+                                            "torch_tier_ms", "engine_ms",
+                                            "bound_ms", "bound_by")))
+
+
 # --- phase 3 ----------------------------------------------------------------
 
 def phase_main_path(report, device, datasets):
@@ -440,9 +639,92 @@ def phase_main_path(report, device, datasets):
               f"max_memory_allocated {peak} B, shortlex oracle: equal")
     for name, count in total.items():
         report.rows[name]["launches"] = count
-        if count == 0:
+        if count == 0 and name in MAIN_PATH:
             raise AssertionError(f"{name} was never launched on the main "
                                  "path")
+
+
+def launch_counts(run):
+    """``run()`` with every launch counter set to 0 just before and read
+    just after; returns ``(result, {kernel: launches})``."""
+    import torch
+    from repro_torch.kernels import KERNELS
+    for k in KERNELS.values():
+        k.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in KERNELS.items()}
+
+
+def phase_run_tier(report, device, ds2_words, big_words):
+    """The run tier end to end: the chunked sorts through their entry
+    points, each checked against the shortlex oracle with the launch
+    counters read around it, then timed: the whole call (median), and the
+    same work in its two stages, the chunk sorts and the combine."""
+    import numpy as np
+    import torch
+    from repro_torch import to_numpy
+    from repro_torch.core import packing
+    from repro_torch.kernels import KERNELS
+    from repro_torch.pipeline import (chunked_sort_packed, chunked_sort_words,
+                                      merge_runs, sorted_run)
+    ds2_oracle = shortlex(ds2_words)
+    big_keys = packing.pack_words(big_words)
+    big_oracle = packing.pack_words(shortlex(big_words), width=16)
+    cases = (
+        ("DS2 chunked, k-way", ds2_words, 4096, "auto", "merge_runs_kway",
+         lambda: chunked_sort_words(ds2_words, chunk_size=4096,
+                                    merge_engine="auto", device=device)),
+        ("DS2 chunked, tournament", ds2_words, 4096, "tournament",
+         "merge_runs_lex",
+         lambda: chunked_sort_words(ds2_words, chunk_size=4096,
+                                    merge_engine="tournament",
+                                    device=device)),
+        ("1M words chunked, k-way, validate=full", big_words, 16384, "auto",
+         "merge_runs_kway",
+         lambda: chunked_sort_packed(big_keys, chunk_size=16384,
+                                     validate="full", device=device)),
+    )
+    for name, words, chunk, engine, merge_kernel, run in cases:
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = launch_counts(run)
+        peak = torch.cuda.max_memory_allocated()
+        if isinstance(out, list):
+            ok = out == ds2_oracle
+        else:
+            ok = np.array_equal(to_numpy(out.keys), big_oracle)
+        if not ok:
+            raise AssertionError(f"{name}: not the shortlex order")
+        for kname in ("distribute_rows", "bitonic_rows_lex",
+                      "merge_adjacent_lex", merge_kernel):
+            if counts[kname] == 0:
+                raise AssertionError(f"{name}: {kname} never launched")
+        for kname, c in counts.items():
+            report.rows[kname]["launches"] += c
+        reps = 3 if len(words) < 500_000 else 1
+        total = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            total.append(time.perf_counter() - t0)
+        keys = packing.pack_words(words)
+        t0 = time.perf_counter()
+        runs = [sorted_run(keys[s:s + chunk], capacity=chunk, device=device)
+                for s in range(0, len(keys), chunk)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        merge_runs([r.lanes() for r in runs], engine=engine,
+                   cmp_runs=[r.cmp_lanes() for r in runs])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        t = statistics.median(total)
+        print(f"[run tier] {name}: {len(words)} words, {len(runs)} runs, "
+              f"launches {counts}; total median {t * 1e3:.3f} ms "
+              f"({len(words) / t:.0f} words/s) over {reps}; staged: chunk "
+              f"sorts {(t1 - t0) * 1e3:.3f} ms, combine "
+              f"{(t2 - t1) * 1e3:.3f} ms; max_memory_allocated {peak} B; "
+              "shortlex oracle: equal")
 
 
 def main() -> int:
@@ -466,7 +748,13 @@ def main() -> int:
     phase_kernels(report, device, packing.pack_words(words["DS2"]),
                   packing.pack_words(words["chunk-500"]),
                   packing.pack_words(words["chunk-3000"]))
+    phase_run_merges(report, device, packing.pack_words(words["DS2"]))
     phase_main_path(report, device, list(words.items()))
+    phase_run_tier(report, device, words["DS2"],
+                   synthetic_words(1_048_576, seed=0))
+    for name, row in report.rows.items():
+        if row["launches"] == 0:
+            raise AssertionError(f"{name} was never launched on its path")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": list(report.rows.values())}))

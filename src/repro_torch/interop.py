@@ -5,7 +5,10 @@ packed keys ``(n, lanes)``, a bucket tensor ``(num_buckets, capacity,
 lanes)`` and its counts — as numpy arrays on the reference's side and torch
 tensors on the port's. ``uint32`` arrays become ``torch.uint32`` tensors
 with the same bits (moved as int32 views, since torch's uint32 support is
-thin) and come back as ``numpy.uint32``.
+thin) and come back as ``numpy.uint32``. A sorted run crosses as its fields:
+:func:`run_to_device` builds the port's ``pipeline.SortedRun`` from the
+reference's ``SortedRun`` fields (``lengths``, ``keys``, ``packed``), and
+:func:`run_to_numpy` gives them back.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "to_device", "to_numpy"]
+__all__ = ["resolve_device", "to_device", "to_numpy", "run_to_device",
+           "run_to_numpy"]
 
 
 def resolve_device(device) -> torch.device:
@@ -36,6 +40,8 @@ def to_device(x, device="cuda"):
         t = x
     else:
         a = np.ascontiguousarray(x)
+        if not a.flags.writeable:     # torch does not take read-only arrays
+            a = a.copy()
         t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
         if a.dtype == np.uint32:
             t = t.view(torch.uint32)
@@ -52,3 +58,23 @@ def to_numpy(x):
     if x.dtype == torch.uint32:
         return x.view(torch.int32).cpu().numpy().view(np.uint32)
     return x.cpu().numpy()
+
+
+def run_to_device(lengths, keys, packed=None, device="cuda"):
+    """The port's ``pipeline.SortedRun`` on ``device`` from a sorted run's
+    fields as the reference holds them (numpy or anything ``np.asarray``
+    takes): ``lengths`` (m,) int32, ``keys`` (m, lanes) uint32 and the
+    optional packed rank-key lanes."""
+    from .pipeline.ingest import SortedRun    # the pipeline imports interop
+    return SortedRun(
+        lengths=to_device(np.asarray(lengths, np.int32), device),
+        keys=to_device(np.asarray(keys, np.uint32), device),
+        packed=None if packed is None else tuple(
+            to_device(np.asarray(p), device) for p in packed))
+
+
+def run_to_numpy(run):
+    """A port ``SortedRun``'s fields as numpy arrays, the reference's
+    ``SortedRun`` fields: ``(lengths, keys, packed_or_None)``."""
+    packed = None if run.packed is None else tuple(to_numpy(run.packed))
+    return to_numpy(run.lengths), to_numpy(run.keys), packed

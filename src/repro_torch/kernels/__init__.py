@@ -1,18 +1,23 @@
-"""The port's kernels: four hand-written CUDA kernels for Hopper (sm_90a),
+"""The port's kernels: six hand-written CUDA kernels for Hopper (sm_90a),
 each beside its plain PyTorch version in the same module — ``oets_kernel``
-(B1), ``bitonic_kernel`` (B2), ``distribute_kernel`` (B3) and
-``merge_kernel`` (B4); the shared key plane ``lex``; the rank-key packing
-``keypack``; and the public ``ops``. ``_build`` compiles and binds the
+(B1), ``bitonic_kernel`` (B2), ``distribute_kernel`` (B3), ``merge_kernel``
+(B4), ``runmerge_kernel`` (B5) and ``kway_kernel`` (B6); the shared key
+plane ``lex``; the rank-key packing and merge-path ranks ``keypack``; and
+the public ``ops``. ``_build`` compiles and binds the
 kernels on their first CUDA launch and counts their launches (``KERNELS``).
 """
 
 from ._build import KERNELS
-from .keypack import (PackedKeys, PackPlan, pack_rank_keys, pack_shortlex,
-                      plan_pack, shortlex_max_values)
-from .lex import (from_order_bits, lex_gt_lanes, order_view, sentinel_for,
-                  to_order_bits)
-from .ops import (BucketizeResult, bucketize, choose_lex_engine, choose_plan,
-                  distribute, execution_provenance, scatter_to_buckets,
+from .keypack import (PackedKeys, PackPlan, cmp_from_packed, lex_searchsorted,
+                      merge_take_packed, pack_rank_keys, pack_shortlex,
+                      packed_cmp_lanes, packed_searchsorted, plan_pack,
+                      shortlex_max_values, unpack_rank_keys)
+from .lex import (from_order_bits, lex_gt_lanes, lex_merge_take,
+                  lex_rank_count, order_view, sentinel_for, to_order_bits)
+from .ops import (BucketizeResult, bucketize, choose_kway_engine,
+                  choose_lex_engine, choose_merge_engine, choose_plan,
+                  distribute, execution_provenance, merge_runs_lex,
+                  merge_sorted, merge_sorted_lex, scatter_to_buckets,
                   segmented_sort, sort, sort_kv, sort_lex, sort_rows_lex)
 
 __all__ = [
@@ -21,5 +26,9 @@ __all__ = [
     "choose_lex_engine", "execution_provenance", "sort_rows_lex",
     "to_order_bits", "from_order_bits", "order_view", "sentinel_for",
     "lex_gt_lanes", "PackPlan", "PackedKeys", "plan_pack", "pack_rank_keys",
-    "pack_shortlex", "shortlex_max_values",
+    "pack_shortlex", "shortlex_max_values", "unpack_rank_keys",
+    "packed_cmp_lanes", "cmp_from_packed", "lex_searchsorted",
+    "packed_searchsorted", "merge_take_packed", "lex_rank_count",
+    "lex_merge_take", "choose_merge_engine", "merge_sorted_lex",
+    "merge_sorted", "choose_kway_engine", "merge_runs_lex",
 ]

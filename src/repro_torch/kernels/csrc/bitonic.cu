@@ -28,18 +28,7 @@ __global__ void bitonic_rows_kernel(uint32_t* x, int n_arr, int rows, int cols,
   size_t row = (size_t)blockIdx.x * cols;
   w.load(x, lane_stride, row);
   __syncthreads();
-  int half = cols / 2;
-  for (int kk = 2; kk <= cols; kk <<= 1) {
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-      for (int k = threadIdx.x; k < half; k += blockDim.x) {
-        int i = 2 * k - (k & (j - 1));  // the k-th index with bit j unset
-        int p = i + j;
-        if ((i & kk) == 0) w.cmpx(i, p);
-        else w.cmpx(p, i);
-      }
-      __syncthreads();
-    }
-  }
+  sort_window(w, cols);
   w.store(x, lane_stride, row);
 }
 

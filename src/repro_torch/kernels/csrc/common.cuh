@@ -1,6 +1,8 @@
-// Shared pieces of the port's row-sort kernels: the lane codes, the
-// canonical order bits of kernels/lex.py, the lexicographic compare, and the
-// load/store of one window of a stacked (arrays, rows, cols) lane tensor.
+// Shared pieces of the port's kernels: the lane codes, the canonical order
+// bits of kernels/lex.py, the lexicographic compare, the load/store of one
+// window of a stacked (arrays, rows, cols) lane tensor, and the two networks
+// that run on a window in shared memory — the bitonic sort (B2, and B6's
+// block window) and the merge of two sorted halves (B4, and B5's window).
 //
 // Every kernel reads each lane's raw 32 bits and its code, compares the
 // order bits computed in registers, and swaps the raw bits: an output is a
@@ -24,6 +26,12 @@ __device__ __forceinline__ uint32_t order_bits(uint32_t b, int code) {
   if (mag > 0x7F800000u) return b == 0xFFFFFFFFu ? 0xFFFFFFFFu : 0xFFFFFFFEu;
   if (mag == 0) b = 0;  // -0.0 -> +0.0
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The lex-maximal padding bits of a code: the positive max for int32, all
+// ones (the uint32 max, the float32 padding NaN) otherwise.
+__device__ __forceinline__ uint32_t sentinel_bits(int code) {
+  return code == CODE_I32 ? 0x7FFFFFFFu : 0xFFFFFFFFu;
 }
 
 // The window of one row in shared memory: array a's element i at
@@ -74,6 +82,44 @@ struct Window {
         x[a * lane_stride + row + i] = s[a * width + i];
   }
 };
+
+// Sort the `cols`-wide window (a power of two) ascending in place, every
+// thread of the block taking part: step (kk, j) compare-exchanges the pairs
+// (i, i ^ j) with bit j of i unset, ascending where i & kk is 0 and
+// descending elsewhere — the pairs of repro/kernels/bitonic_kernel.py.
+// Ends with a barrier; the caller puts one between the load and the call.
+__device__ __forceinline__ void sort_window(const Window& w, int cols) {
+  int half = cols / 2;
+  for (int kk = 2; kk <= cols; kk <<= 1) {
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+      for (int k = threadIdx.x; k < half; k += blockDim.x) {
+        int i = 2 * k - (k & (j - 1));  // the k-th index with bit j unset
+        int p = i + j;
+        if ((i & kk) == 0) w.cmpx(i, p);
+        else w.cmpx(p, i);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Merge in place a 2 x `block` window whose halves are each sorted: a
+// reflected stage (i against 2B-1-i) turns asc ++ asc into two bitonic
+// halves, then log2(B) XOR stages finish them, the low half left — the
+// pairs of repro/kernels/merge_kernel.py's _merge_network. Every thread of
+// the block takes part; ends with a barrier.
+__device__ __forceinline__ void merge_halves(const Window& w, int block) {
+  int width = 2 * block;
+  for (int k = threadIdx.x; k < block; k += blockDim.x) w.cmpx(k, width - 1 - k);
+  __syncthreads();
+  for (int j = block >> 1; j > 0; j >>= 1) {
+    for (int k = threadIdx.x; k < block; k += blockDim.x) {
+      int i = 2 * k - (k & (j - 1));  // the k-th index with bit j unset
+      w.cmpx(i, i + j);
+    }
+    __syncthreads();
+  }
+}
 
 // Threads for a block that works on `pairs` compare-exchanges per step:
 // whole warps, at most 1024.

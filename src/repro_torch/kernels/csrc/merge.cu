@@ -31,16 +31,7 @@ __global__ void merge_pairs_kernel(uint32_t* x, int n_arr, int rows, int ncols,
   size_t start = (size_t)r * ncols + lo + (size_t)pair * width;
   w.load(x, lane_stride, start);
   __syncthreads();
-  // reflected stage: i against 2B-1-i turns asc ++ asc into two bitonic halves
-  for (int k = threadIdx.x; k < block; k += blockDim.x) w.cmpx(k, width - 1 - k);
-  __syncthreads();
-  for (int j = block >> 1; j > 0; j >>= 1) {
-    for (int k = threadIdx.x; k < block; k += blockDim.x) {
-      int i = 2 * k - (k & (j - 1));  // the k-th index with bit j unset
-      w.cmpx(i, i + j);
-    }
-    __syncthreads();
-  }
+  merge_halves(w, block);
   w.store(x, lane_stride, start);
 }
 

@@ -11,8 +11,11 @@ the tuple does not fit the budget, the packed pair is an order-preserving
 *prefix* of it. torch cannot shift uint32, so the ``(hi, lo)`` shifts run
 in int64 and are masked back to 32 bits.
 
-The unpacking, the searchsorted ranks and the packed merge wait for the run
-tier (ROADMAP A6).
+The run tier's half: :func:`unpack_rank_keys`; the minimal compare-lane
+list of a tuple (:func:`packed_cmp_lanes`, :func:`cmp_from_packed`); the
+binary-search merge-path rank :func:`lex_searchsorted` (a loop of gathers
+over stacked order keys); and the searchsorted-fast two-run merge
+:func:`merge_take_packed`. Ranks are int64, torch's index type.
 """
 
 from __future__ import annotations
@@ -21,10 +24,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .lex import F32, dtype_code, to_order_bits
+from .lex import (F32, dtype_code, from_order_bits, lex_gt_keys, order_view,
+                  scatter_merge, to_order_bits)
 
 __all__ = ["PackPlan", "PackedKeys", "plan_pack", "pack_rank_keys",
-           "pack_shortlex", "shortlex_max_values"]
+           "pack_shortlex", "shortlex_max_values", "unpack_rank_keys",
+           "packed_cmp_lanes", "cmp_from_packed", "lex_searchsorted",
+           "packed_searchsorted", "merge_take_packed"]
 
 _BUDGET_BITS = 64
 _M32 = 0xFFFFFFFF
@@ -162,3 +168,129 @@ def pack_shortlex(lengths: torch.Tensor, keys: torch.Tensor) -> PackedKeys:
     with the tight length-lane width."""
     lanes = [lengths] + [keys[:, l] for l in range(keys.shape[1])]
     return pack_rank_keys(lanes, shortlex_max_values(keys.shape[1]))
+
+
+def unpack_rank_keys(packed_lanes, dtypes, max_values=None) -> list:
+    """Invert :func:`pack_rank_keys` (exact plans only): the original lanes
+    of ``dtypes`` (torch dtypes), bit-identical for integer lanes; float32
+    comes back canonical (``-0.0`` as ``+0.0``, see ``lex.from_order_bits``)."""
+    dtypes = tuple(dtypes)
+    max_values = _norm_max_values(len(dtypes), max_values)
+    plan = plan_pack(dtypes, max_values)
+    if not plan.exact:
+        raise ValueError("cannot unpack a lossy (inexact) rank-key packing")
+    packed_lanes = list(packed_lanes)
+    if len(packed_lanes) != plan.n_packed:
+        raise ValueError(f"expected {plan.n_packed} packed lanes")
+    fields = list(reversed(list(zip(dtypes, max_values, plan.take))))
+    out = []
+    if plan.n_packed == 1:
+        acc = _as_u64(packed_lanes[0], None)
+        for dt, mv, w in fields:
+            out.append(from_order_bits(_to_u32(acc & ((1 << w) - 1)), dt, mv))
+            acc = acc >> w
+        return list(reversed(out))
+    hi, lo = (_as_u64(p, None) for p in packed_lanes)
+    for dt, mv, w in fields:
+        if w == 32:
+            val, hi, lo = lo, torch.zeros_like(hi), hi
+        else:
+            val = lo & ((1 << w) - 1)
+            lo = ((lo >> w) | (hi << (32 - w))) & _M32
+            hi = hi >> w
+        out.append(from_order_bits(_to_u32(val), dt, mv))
+    return list(reversed(out))
+
+
+def cmp_from_packed(packed_lanes, lanes, max_values=None) -> list:
+    """The minimal compare-lane list of ``lanes`` from rank keys packed
+    earlier: the packed lanes alone when the plan is exact, else the packed
+    prefix plus the lane-wise tie-break suffix from the first lane the
+    budget does not cover — or the raw lanes when that is no shorter."""
+    lanes = list(lanes)
+    plan = plan_pack([a.dtype for a in lanes], max_values)
+    packed_lanes = list(packed_lanes)
+    if plan.exact:
+        return packed_lanes
+    cand = packed_lanes + lanes[plan.covered:]
+    return cand if len(cand) <= len(lanes) else lanes
+
+
+def packed_cmp_lanes(lanes, max_values=None) -> list:
+    """:func:`cmp_from_packed` of a fresh packing; lanes that cannot pack
+    (a dtype the port does not take) come back as they are. Lex order over
+    the result equals ``lex_gt_lanes`` order over ``lanes``."""
+    lanes = list(lanes)
+    try:
+        pk = pack_rank_keys(lanes, max_values)
+    except TypeError:
+        return lanes
+    return cmp_from_packed(pk.lanes, lanes, max_values)
+
+
+def lex_searchsorted(a_lanes, v_lanes, side: str = "left") -> torch.Tensor:
+    """For every lex tuple of ``v_lanes``, its insertion point into the
+    lex-sorted tuples of ``a_lanes`` (int64) — a vectorised binary search of
+    ``bit_length(|a|) + 1`` rounds, one gather and one lex compare of the
+    stacked order keys each (``repro.kernels.keypack.lex_searchsorted``).
+    Single-lane inputs take ``torch.searchsorted`` on the order view."""
+    if side not in ("left", "right"):
+        raise ValueError(f"unknown side {side!r}")
+    a_lanes, v_lanes = list(a_lanes), list(v_lanes)
+    if len(a_lanes) != len(v_lanes):
+        raise ValueError("a_lanes and v_lanes must have the same arity")
+    if len(a_lanes) == 1:
+        return torch.searchsorted(order_view(a_lanes[0]),
+                                  order_view(v_lanes[0]), side=side)
+    n = a_lanes[0].shape[0]
+    shape = v_lanes[0].shape
+    dev = v_lanes[0].device
+    lo = torch.zeros(shape, dtype=torch.int64, device=dev)
+    if n == 0:
+        return lo
+    ka = torch.stack([order_view(a) for a in a_lanes])
+    kv = torch.stack([order_view(v) for v in v_lanes])
+    hi = torch.full(shape, n, dtype=torch.int64, device=dev)
+    for _ in range(int(n).bit_length() + 1):
+        mid = (lo + hi) >> 1
+        a_mid = ka[:, mid.clamp(max=n - 1)]
+        if side == "left":
+            pred = lex_gt_keys(kv, a_mid)           # a[mid] <  v
+        else:
+            pred = ~lex_gt_keys(a_mid, kv)          # a[mid] <= v
+        pred &= mid < hi                            # frozen once converged
+        lo = torch.where(pred, mid + 1, lo)
+        hi = torch.where(pred, hi, mid)
+    return lo
+
+
+def packed_searchsorted(a_lanes, v_lanes, side: str = "left",
+                        max_values=None) -> torch.Tensor:
+    """:func:`lex_searchsorted` over the packed compare lists of both tuple
+    sets (``a_lanes`` lex-sorted)."""
+    return lex_searchsorted(packed_cmp_lanes(a_lanes, max_values),
+                            packed_cmp_lanes(v_lanes, max_values), side=side)
+
+
+def merge_take_packed(a_lanes, b_lanes, n_cmp: Optional[int] = None,
+                      max_values=None) -> list:
+    """Merge two *sorted* lex-tuple runs by packed merge-path ranks and one
+    scatter per lane — ``repro.kernels.keypack.merge_take_packed``: equal
+    tuples keep a before b and in-run order, every output slot is written
+    once. ``n_cmp``: the leading ``n_cmp`` lanes are the compare list as
+    they are (pre-packed by the caller); ``None`` packs it from all lanes."""
+    a_lanes, b_lanes = list(a_lanes), list(b_lanes)
+    if len(a_lanes) != len(b_lanes):
+        raise ValueError("runs must have the same lane arity")
+    na, nb = a_lanes[0].shape[0], b_lanes[0].shape[0]
+    if n_cmp is None:
+        cmp_a = packed_cmp_lanes(a_lanes, max_values)
+        cmp_b = packed_cmp_lanes(b_lanes, max_values)
+    else:
+        cmp_a, cmp_b = a_lanes[:n_cmp], b_lanes[:n_cmp]
+    dev = a_lanes[0].device
+    rank_a = torch.arange(na, device=dev) + lex_searchsorted(cmp_b, cmp_a,
+                                                             side="left")
+    rank_b = torch.arange(nb, device=dev) + lex_searchsorted(cmp_a, cmp_b,
+                                                             side="right")
+    return scatter_merge(a_lanes, b_lanes, rank_a, rank_b)

@@ -23,6 +23,11 @@ entry ``a`` is lane ``a`` of every element, lane 0 most significant, and
 trailing lanes are payloads that double as final tie-breaks (the
 conventions of ``repro.kernels.lex``). Only 32-bit lanes are taken;
 ``int8``/``int16`` lanes wait for ROADMAP A2.
+
+:func:`lex_rank_count` and :func:`lex_merge_take` are the broadcast merge
+oracles of the run tier: O(|a|·|b|) compares, kept for the tests and the
+``'lanes'`` merge engine; the production merges rank through
+``keypack.lex_searchsorted``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ import torch
 __all__ = ["U32", "I32", "F32", "MAX_ARRAYS", "dtype_code", "as_bits",
            "from_bits", "sentinel_bits", "sentinel_for", "codes_mask",
            "to_order_bits", "from_order_bits", "order_view", "order_keys",
-           "lex_gt_keys", "lex_gt_lanes"]
+           "lex_gt_keys", "lex_gt_lanes", "lex_rank_count", "lex_merge_take",
+           "scatter_merge"]
 
 # lane type codes, as the CUDA kernels read them (csrc/common.cuh)
 U32, I32, F32 = 0, 1, 2
@@ -188,3 +194,53 @@ def lex_gt_lanes(a_lanes, b_lanes) -> torch.Tensor:
     ka = torch.stack([order_view(a) for a in a_lanes])
     kb = torch.stack([order_view(b) for b in b_lanes])
     return lex_gt_keys(ka, kb)
+
+
+def lex_rank_count(a_lanes, b_lanes, strict: bool) -> torch.Tensor:
+    """For each element of ``b``: how many elements of ``a`` are lex-below
+    it (``strict``) or lex-at-or-below it (``not strict``), as int64 — the
+    O(|a|·|b|) broadcast compare of ``repro.kernels.lex.lex_rank_count``."""
+    a2 = [a[:, None] for a in a_lanes]
+    b2 = [b[None, :] for b in b_lanes]
+    cmp = lex_gt_lanes(b2, a2) if strict else ~lex_gt_lanes(a2, b2)
+    return cmp.sum(dim=0)
+
+
+def scatter_merge(a_lanes, b_lanes, rank_a: torch.Tensor,
+                  rank_b: torch.Tensor) -> list:
+    """Place ``a``'s elements at ``rank_a`` and ``b``'s at ``rank_b`` of
+    ``|a| + |b|``-long lanes (the ranks must be a permutation); bits move
+    unchanged."""
+    out = []
+    for a, b in zip(a_lanes, b_lanes):
+        o = torch.empty(a.shape[0] + b.shape[0], dtype=torch.int32,
+                        device=a.device)
+        o[rank_a] = as_bits(a)
+        o[rank_b] = as_bits(b)
+        out.append(from_bits(o, a.dtype))
+    return out
+
+
+def lex_merge_take(a_lanes, b_lanes) -> list:
+    """Merge two *sorted* lex-tuple runs (lists of parallel 1-D 32-bit
+    tensors, any lengths) by merge-path rank + scatter —
+    ``repro.kernels.lex.lex_merge_take``: each element goes to its own index
+    plus the count of smaller elements of the other run, strict for ``a``
+    and non-strict for ``b``, so equal tuples keep a before b. Key-only runs
+    rank by ``torch.searchsorted`` over the order view; wider tuples pay the
+    broadcast compare."""
+    a_lanes, b_lanes = list(a_lanes), list(b_lanes)
+    na, nb = a_lanes[0].shape[0], b_lanes[0].shape[0]
+    dev = a_lanes[0].device
+    if len(a_lanes) == 1:
+        a0, b0 = order_view(a_lanes[0]), order_view(b_lanes[0])
+        rank_a = torch.arange(na, device=dev) + torch.searchsorted(
+            b0, a0, side="left")
+        rank_b = torch.arange(nb, device=dev) + torch.searchsorted(
+            a0, b0, side="right")
+    else:
+        rank_a = torch.arange(na, device=dev) + lex_rank_count(
+            b_lanes, a_lanes, strict=True)
+        rank_b = torch.arange(nb, device=dev) + lex_rank_count(
+            a_lanes, b_lanes, strict=False)
+    return scatter_merge(a_lanes, b_lanes, rank_a, rank_b)

@@ -14,6 +14,13 @@ Entry points:
     ``scatter_to_buckets`` — the paper's distribute phase: the distribute
     kernel (B3), then one scatter into the bucket tensor.
   * ``sort_rows_lex`` — the single-block row sorts.
+  * ``merge_sorted_lex(a, b)`` / ``merge_sorted`` — merge two sorted runs:
+    the merge-path kernel (B5) or the packed rank + scatter tier;
+    ``merge_runs_lex(runs)`` — merge k sorted runs in one pass: the k-way
+    kernel (B6) or the torch 'take' tier. ``choose_merge_engine`` and
+    ``choose_kway_engine`` pick: the kernel for runs on a CUDA device past
+    two output blocks, the torch tier otherwise — the reference's TPU rule
+    with CUDA in its place.
 
 Every op dispatches on its tensors' device: on the CPU it runs the kernels'
 plain PyTorch versions, on a CUDA device it launches the kernels, and it
@@ -40,14 +47,18 @@ import torch
 from ..runtime.failure import CapacityOverflow
 from .bitonic_kernel import bitonic_rows_lex
 from .distribute_kernel import distribute_rows
-from .keypack import plan_pack
-from .lex import as_bits, dtype_code, from_bits, sentinel_bits
+from .keypack import merge_take_packed, plan_pack
+from .kway_kernel import merge_runs_kway_kernel, merge_runs_kway_take
+from .lex import as_bits, dtype_code, from_bits, lex_merge_take, sentinel_bits
 from .oets_kernel import oets_rows_lex
+from .runmerge_kernel import (DEFAULT_MERGE_BLOCK, check_runs,
+                              merge_runs_lex_kernel)
 
 __all__ = ["sort", "sort_kv", "sort_lex", "segmented_sort", "distribute",
            "bucketize", "BucketizeResult", "scatter_to_buckets",
            "choose_plan", "choose_lex_engine", "execution_provenance",
-           "sort_rows_lex"]
+           "sort_rows_lex", "choose_merge_engine", "merge_sorted_lex",
+           "merge_sorted", "choose_kway_engine", "merge_runs_lex"]
 
 log = logging.getLogger("repro_torch.kernels")
 
@@ -361,3 +372,102 @@ def scatter_to_buckets(keys: torch.Tensor, dest: torch.Tensor,
     flat[slot] = as_bits(keys)
     return flat[: num_buckets * capacity].reshape(
         num_buckets, capacity, lanes).view(torch.uint32)
+
+
+def _on_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def choose_merge_engine(total: int, engine: str = "auto",
+                        device=None) -> str:
+    """Pick the two-run merge engine for a ``total``-element merge on
+    ``device``: 'kernel' (the merge-path kernel, B5) for runs on a CUDA
+    device past two output blocks, else 'packed' (rank-key searchsorted
+    ranks and one scatter per lane) — ``repro.kernels.ops``'s rule with
+    CUDA in place of the TPU; where the H100's crossover lies is measured in
+    PERF.md. 'lanes', the broadcast oracle, is never chosen by 'auto'. An
+    explicit ``engine`` overrides."""
+    if engine != "auto":
+        if engine not in ("lanes", "packed", "kernel"):
+            raise ValueError(f"unknown engine {engine!r}")
+        return engine
+    if _on_cuda(device) and total > 2 * DEFAULT_MERGE_BLOCK:
+        return "kernel"
+    return "packed"
+
+
+def merge_sorted_lex(a_lanes, b_lanes, engine: str = "auto",
+                     n_cmp: int | None = None, max_values=None,
+                     block_size: int | None = None) -> tuple:
+    """Merge two *sorted* lex-tuple runs (tuples of parallel 1-D 32-bit
+    tensors, any lengths) into one sorted run; every lane takes part in the
+    order (trailing lanes break ties) and equal tuples keep a before b.
+
+    ``engine``: 'packed' (rank keys, searchsorted ranks, one scatter),
+    'kernel' (the merge-path kernel, B5; its plain version on the CPU),
+    'lanes' (the broadcast oracle ``lex.lex_merge_take``), 'kway' (the
+    pair through :func:`merge_runs_lex`), or 'auto'
+    (:func:`choose_merge_engine`). ``n_cmp``: the leading ``n_cmp`` lanes
+    are pre-packed compare lanes to rank on as they are; ``max_values``:
+    per-lane packing bounds; ``block_size``: the kernels' output block."""
+    if engine == "kway":
+        return merge_runs_lex([a_lanes, b_lanes], n_cmp=n_cmp,
+                              max_values=max_values, block_size=block_size)
+    a_lanes, b_lanes = check_runs([a_lanes, b_lanes])
+    if a_lanes[0].shape[0] == 0:
+        return b_lanes
+    if b_lanes[0].shape[0] == 0:
+        return a_lanes
+    eng = choose_merge_engine(a_lanes[0].shape[0] + b_lanes[0].shape[0],
+                              engine, a_lanes[0].device)
+    if eng == "lanes":
+        return tuple(lex_merge_take(a_lanes, b_lanes))
+    if eng == "packed":
+        return tuple(merge_take_packed(a_lanes, b_lanes, n_cmp=n_cmp,
+                                       max_values=max_values))
+    return merge_runs_lex_kernel(a_lanes, b_lanes, n_cmp=n_cmp,
+                                 max_values=max_values, block=block_size)
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor, engine: str = "auto",
+                 block_size: int | None = None) -> torch.Tensor:
+    """Key-only :func:`merge_sorted_lex`: merge two sorted 1-D tensors."""
+    (out,) = merge_sorted_lex((a,), (b,), engine=engine,
+                              block_size=block_size)
+    return out
+
+
+def choose_kway_engine(total: int, engine: str = "auto",
+                       device=None) -> str:
+    """Pick the k-way merge tier: 'kernel' (the one-launch k-way kernel,
+    B6) for runs on a CUDA device past two output blocks, else 'take' (one
+    stable sort of the compare lanes and one gather per lane) — the rule of
+    :func:`choose_merge_engine`. An explicit ``engine`` overrides."""
+    if engine != "auto":
+        if engine not in ("take", "kernel"):
+            raise ValueError(f"unknown k-way engine {engine!r}")
+        return engine
+    if _on_cuda(device) and total > 2 * DEFAULT_MERGE_BLOCK:
+        return "kernel"
+    return "take"
+
+
+def merge_runs_lex(runs, engine: str = "auto", n_cmp: int | None = None,
+                   max_values=None, block_size: int | None = None) -> tuple:
+    """Merge k *sorted* lex-tuple runs (equal-arity tuples of parallel 1-D
+    32-bit tensors, any lengths; empty runs drop) into one sorted run in a
+    single pass; compare-equal elements keep run order, then in-run order.
+    ``engine``: 'take', 'kernel' (the k-way kernel, B6; its plain version on
+    the CPU) or 'auto' (:func:`choose_kway_engine`). ``n_cmp``,
+    ``max_values`` and ``block_size`` as in :func:`merge_sorted_lex`."""
+    runs = check_runs(runs)
+    nonempty = [r for r in runs if r[0].shape[0]]
+    if not nonempty:
+        return runs[0]
+    if len(nonempty) == 1:
+        return nonempty[0]
+    total = sum(r[0].shape[0] for r in nonempty)
+    if choose_kway_engine(total, engine, nonempty[0][0].device) == "kernel":
+        return merge_runs_kway_kernel(nonempty, n_cmp=n_cmp,
+                                      max_values=max_values, block=block_size)
+    return merge_runs_kway_take(nonempty, n_cmp=n_cmp, max_values=max_values)

@@ -156,4 +156,5 @@ def test_cpu_path_launches_no_kernel():
     tb.bucketed_sort_words(synthetic_words(100, seed=9), device="cpu")
     assert before == {n: k.launches for n, k in KERNELS.items()}
     assert set(KERNELS) == {"oets_rows_lex", "bitonic_rows_lex",
-                            "distribute_rows", "merge_adjacent_lex"}
+                            "distribute_rows", "merge_adjacent_lex",
+                            "merge_runs_lex", "merge_runs_kway"}

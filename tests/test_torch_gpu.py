@@ -13,8 +13,12 @@ import torch
 from repro_torch.core import bucketing, packing
 from repro_torch.data import synthetic_words
 from repro_torch.interop import to_numpy
-from repro_torch.kernels import (bitonic_kernel, distribute_kernel, lex,
-                                 merge_kernel, oets_kernel)
+from repro_torch.kernels import (bitonic_kernel, distribute_kernel,
+                                 kway_kernel, lex, merge_kernel, oets_kernel,
+                                 runmerge_kernel)
+from repro_torch.kernels.keypack import packed_cmp_lanes
+from repro_torch.pipeline import chunked_sort_words
+from repro_torch.pipeline.validate import order_bits_view
 
 pytestmark = pytest.mark.gpu
 
@@ -117,3 +121,113 @@ def test_main_path_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_array_equal(to_numpy(g), to_numpy(w))
     assert bucketing.bucketed_sort_words(words, device=cuda) == sorted(
         words, key=lambda w: (len(w.encode()), w.encode()))
+
+
+def _sorted_runs(seed, sizes, kind):
+    """Sorted runs of ``kind`` on the CPU, and the compare-lane count to
+    merge them with: 'u32' (three uint32 lanes, a fifth of them the
+    sentinel), 'dup' (three lanes in [0, 4): equal tuples across runs),
+    'float' (a float32 lane of NaNs, ±0 and ±inf and an int32 payload,
+    compared through its packing) or 'wide' (the shortlex tuple of 32-byte
+    words behind its 9 compare lanes: 18 arrays)."""
+    rng = np.random.default_rng(seed)
+    if kind == "wide":
+        runs = []
+        for n in sizes:
+            ws = ["".join(rng.choice(list("abc"), int(ln)))
+                  for ln in rng.integers(1, 33, n)]
+            ws = sorted(ws, key=lambda w: (len(w.encode()), w.encode()))
+            keys = packing.pack_words(ws, width=32)
+            lanes = [torch.tensor([len(w.encode()) for w in ws],
+                                  dtype=torch.int32)]
+            lanes += [torch.from_numpy(keys[:, l].view(np.int32).copy()).view(
+                torch.uint32) for l in range(8)]
+            runs.append(tuple(packed_cmp_lanes(
+                lanes, (32,) + (None,) * 8)) + tuple(lanes))
+        return runs, 9
+    runs = []
+    for n in sizes:
+        if kind == "float":
+            f = rng.normal(size=n).astype(np.float32)
+            pick = rng.random(n)
+            f[pick < 0.2] = np.nan
+            f[(pick >= 0.2) & (pick < 0.35)] = -0.0
+            f[(pick >= 0.35) & (pick < 0.5)] = 0.0
+            f[(pick >= 0.5) & (pick < 0.55)] = np.inf
+            f[pick >= 0.95] = np.array([0xFFFFFFFF], np.uint32).view(
+                np.float32)
+            lanes = [f.view(np.uint32),
+                     rng.integers(-3, 3, n).astype(np.int32).view(np.uint32)]
+            order = np.lexsort((lanes[1].view(np.int32),
+                                order_bits_view(f)))
+            runs.append((torch.from_numpy(f[order].copy()),
+                         torch.from_numpy(lanes[1][order].view(np.int32))))
+            continue
+        v = rng.integers(0, 4 if kind == "dup" else 1 << 32, (3, n),
+                         dtype=np.uint64).astype(np.uint32)
+        if kind == "u32":
+            v[rng.random((3, n)) < 0.2] = 0xFFFFFFFF
+        order = np.lexsort(v[::-1])
+        runs.append(tuple(torch.from_numpy(
+            np.ascontiguousarray(l[order]).view(np.int32)).view(torch.uint32)
+            for l in v))
+    return runs, (None if kind == "float" else 3)
+
+
+def _to(runs, dev):
+    return [tuple(lex.as_bits(x).to(dev).view(x.dtype) if x.dtype ==
+                  torch.uint32 else x.to(dev) for x in r) for r in runs]
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(lex.as_bits(g).cpu(), lex.as_bits(w).cpu())
+
+
+_RUN_CASES = [("u32", (3000, 2500)), ("dup", (1000, 1700)),
+              ("float", (700, 900)), ("wide", (600, 500)),
+              ("u32", (1, 900)), ("dup", (255, 1))]
+
+
+@pytest.mark.parametrize("kind,sizes", _RUN_CASES)
+def test_runmerge_kernel_matches_plain(cuda, kind, sizes):
+    runs, n_cmp = _sorted_runs(4, sizes, kind)
+    a, b = _to(runs, cuda)
+    before = runmerge_kernel.KERNEL.launches
+    got = runmerge_kernel.merge_runs_lex_kernel(a, b, n_cmp=n_cmp)
+    assert runmerge_kernel.KERNEL.launches == before + 1
+    want = runmerge_kernel.merge_runs_lex_kernel(*runs, n_cmp=n_cmp)
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("kind,sizes", _RUN_CASES[:4] + [
+    ("u32", (4096,) * 57), ("dup", (0, 1, 0, 300, 1, 4096, 0)),
+    ("float", (1, 0, 513))])
+def test_kway_kernel_matches_plain(cuda, kind, sizes):
+    runs, n_cmp = _sorted_runs(5, sizes, kind)
+    before = kway_kernel.KERNEL.launches
+    got = kway_kernel.merge_runs_kway_kernel(_to(runs, cuda), n_cmp=n_cmp)
+    assert kway_kernel.KERNEL.launches == before + 1
+    _same_bits(got, kway_kernel.merge_runs_kway_kernel(runs, n_cmp=n_cmp))
+    _same_bits(got, kway_kernel.merge_runs_kway_take(runs, n_cmp=n_cmp))
+
+
+def test_kway_kernel_refuses_more_runs_than_a_launch_takes(cuda):
+    runs = [(torch.tensor([r], dtype=torch.int32, device=cuda),)
+            for r in range(kway_kernel.MAX_RUNS + 1)]
+    with pytest.raises(ValueError, match="at most"):
+        kway_kernel.merge_runs_kway_kernel(runs)
+
+
+@pytest.mark.parametrize("engine,kernel", [
+    ("auto", kway_kernel.KERNEL), ("kway_kernel", kway_kernel.KERNEL),
+    ("tournament", runmerge_kernel.KERNEL)])
+def test_chunked_sort_on_the_card_launches_its_merge_kernel(cuda, engine,
+                                                            kernel):
+    words = synthetic_words(5000, seed=6)
+    kernel.launches = 0
+    got = chunked_sort_words(words, chunk_size=1024, validate="full",
+                             merge_engine=engine, device=cuda)
+    assert kernel.launches > 0
+    assert got == sorted(words, key=lambda w: (len(w.encode()), w.encode()))

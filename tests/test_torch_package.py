@@ -49,7 +49,12 @@ def _run(args, cwd=ROOT, env_extra=None):
 def test_importing_the_port_loads_no_jax():
     res = _run(["-c", "import sys, repro_torch, repro_torch.kernels.ops, "
                 "repro_torch.core.blocksort, repro_torch.configs, "
-                "repro_torch.data, repro_torch.runtime; "
+                "repro_torch.data, repro_torch.runtime, "
+                "repro_torch.kernels.runmerge_kernel, "
+                "repro_torch.kernels.kway_kernel, repro_torch.pipeline, "
+                "repro_torch.pipeline.ingest, repro_torch.pipeline.merge, "
+                "repro_torch.pipeline.manifest, "
+                "repro_torch.pipeline.validate; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'repro')]; print(bad); "
                 "sys.exit(1 if bad else 0)"])
@@ -61,7 +66,9 @@ def test_entry_points_default_to_the_card():
     the same call sorts."""
     import numpy as np
     from repro_torch import bucketed_sort_words, bucketize_packed, \
-        sorted_packed
+        chunked_sort_packed, chunked_sort_words, sorted_packed
+    from repro_torch.interop import run_to_device
+    from repro_torch.pipeline import sorted_run
     words = ["pear", "fig", "apple", "kiwi"]
     keys = np.array([[1], [2]], np.uint32)
     if torch.cuda.is_available():
@@ -70,7 +77,12 @@ def test_entry_points_default_to_the_card():
     for call in (lambda: bucketed_sort_words(words),
                  lambda: bucketed_sort_words([]),
                  lambda: sorted_packed(keys),
-                 lambda: bucketize_packed(keys)):
+                 lambda: bucketize_packed(keys),
+                 lambda: chunked_sort_words(words),
+                 lambda: chunked_sort_words([]),
+                 lambda: chunked_sort_packed(keys),
+                 lambda: sorted_run(keys),
+                 lambda: run_to_device(np.ones(2, np.int32), keys)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
