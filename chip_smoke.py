@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
 
-  1. build — compile the six CUDA kernels from ``src/repro_torch/kernels/
+  1. build — compile the seven CUDA kernels from ``src/repro_torch/kernels/
      csrc`` with ``nvcc`` for ``sm_90a``, one process per source, and print
      ``-Xptxas -v``'s registers, shared memory and spills per kernel;
   2. kernels — run every kernel at the shapes its path gives it, on the
@@ -30,7 +30,21 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      counter is set to 0 just before each run and read just after; each
      result must equal Python's shortlex ``sorted``, DS1's packed lanes must
      equal the plain path's on the CPU, and every kernel must have run on
-     its path.
+     its path;
+  4. partition and the repaired sorts — ``partition_rows`` (B7) on DS2's
+     first packed lane as (8, 28,750) with 7 and 127 splitters, on the
+     million-word corpus's first lane as (64, 16,384) with 127, and on
+     DS2's byte lengths (1, 230,000) with splitters 1..16, whose counts
+     must equal B3's histogram; ``sort`` of 230,000 int8, int16, uint8 and
+     uint16 keys (blocksort: B2, B4) and ``sort_lex`` through the packed
+     engine on two bounded int32 lanes and on a float32 lane of NaN
+     payloads and ±0 beside an int32 lane, each equal to the CPU port's
+     result. The counters are read around those calls; then B7 is held to
+     its plain version bit for bit on each input and on adversarial ones
+     (int32 extremes, keys equal to splitters, duplicated and unsorted
+     splitters, none, C = 130 with R = 1, uint32 keys past 2^31), and
+     timed beside its plain version and ``torch.bucketize`` plus a
+     scatter-add.
 
 Then it prints the card's name and power limit as ``nvidia-smi`` gives them,
 one JSON line with every kernel's numbers, and last
@@ -62,6 +76,7 @@ E2E_RUNS = 5
 # the kernels of sorted_packed and bucketed_sort_words
 MAIN_PATH = ("oets_rows_lex", "bitonic_rows_lex", "distribute_rows",
              "merge_adjacent_lex")
+NARROW_N = 230_000
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -115,16 +130,19 @@ def bits_err(a, b) -> int:
 
 
 class Report:
-    """Per-kernel numbers for the final JSON line."""
+    """Per-kernel numbers for the final JSON line: one row for every kernel
+    of the package."""
 
     def __init__(self):
-        self.rows = {}
+        from repro_torch.kernels import KERNELS
+        self.rows = {k.name: {
+            "name": k.name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{k.source}",
+            "replaces": k.replaces, "launches": 0, "max_abs_err": 0}
+            for k in KERNELS.values()}
 
     def add(self, kernel, err: int, **numbers):
-        row = self.rows.setdefault(kernel.name, {
-            "name": kernel.name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{kernel.source}",
-            "replaces": kernel.replaces, "launches": 0, "max_abs_err": 0})
+        row = self.rows[kernel.name]
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row.update(numbers)
 
@@ -237,7 +255,6 @@ def check_row_kernel(kernel, wrapper, plain, x, codes, label, **kw):
 
 def time_row_kernel(kernel, wrapper, plain, lib, x, codes, **kw):
     """Kernel over distinct fresh copies (in place), plain version, library."""
-    import torch
     copies = [x.clone() for _ in range(min(KERNEL_ITERS, 8))]
     ms = cuda_time(lambda i: wrapper(copies[i % len(copies)].copy_(x),
                                      codes, **kw), KERNEL_ITERS)
@@ -387,7 +404,8 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
                    PLAIN_ITERS, 1),
                library_ms=None,
                **bound(n * 4 * 4 + 2 * n * 4 + 17 * 4, n * 4))
-    for name, row in report.rows.items():
+    for name in MAIN_PATH:
+        row = report.rows[name]
         print(f"[kernels] {name}: " + ", ".join(
             f"{key} {row[key]}" for key in ("shape", "ms", "plain_ms",
                                             "library_ms", "bound_ms",
@@ -727,6 +745,206 @@ def phase_run_tier(report, device, ds2_words, big_words):
               "shortlex oracle: equal")
 
 
+# --- phase 4 ----------------------------------------------------------------
+
+def quantiles(x, n_spl: int):
+    """``n_spl`` int32 splitters at the (j + 1) / (n_spl + 1) quantiles of
+    ``x``'s values, as a sample sort draws them."""
+    import torch
+    s = torch.sort(x.reshape(-1)).values
+    idx = (torch.arange(1, n_spl + 1, device=x.device) * s.numel()
+           // (n_spl + 1))
+    return s[idx].contiguous()
+
+
+def partition_adversarial(device):
+    """``(label, keys, splitters)`` adversarial inputs of B7, int32."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2)
+    info = np.iinfo(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    ext = rng.integers(-5, 5, (4, 3000)).astype(np.int32)
+    ext[:, ::3], ext[:, 1::3] = info.max, info.min
+    eq = rng.choice(np.array([-7, 0, 9, 100], np.int32), (3, 5000))
+    small = rng.integers(-1000, 1000, (16, 4096)).astype(np.int32)
+    wrap = rng.integers(0, 1 << 32, (2, 5000), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    return [
+        ("int32 extremes", t(ext), t([info.min, -1, 0, 4, info.max])),
+        ("keys equal to splitters", t(eq), t([-7, 0, 9, 100])),
+        ("duplicated splitters", t(small), t([-5, -5, -5, 0, 0, 700, 700])),
+        ("unsorted splitters", t(small), t(rng.permutation(
+            np.arange(-990, 1000, 30)))),
+        ("no splitters", t(small), t(np.zeros(0))),
+        ("C = 130, R = 1", t(small[:1, :130]), t([-500, 0, 500])),
+        ("uint32 keys past 2^31", t(wrap), t(np.sort(rng.integers(
+            info.min, info.max, 31)))),
+    ]
+
+
+def phase_partition_and_repairs(report, device, ds2_words, big_words):
+    """B7 behind ``partition_rows`` and the narrow-lane and packed sorts, on
+    the card with the counters read around them; then B7 checked against
+    its plain version and timed."""
+    import numpy as np
+    import torch
+    from repro_torch import to_device
+    from repro_torch.core import packing
+    from repro_torch.kernels import lex, ops, partition_kernel as pk
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    ds2_keys = packing.pack_words(ds2_words)
+    ds2_lane = to_device(ds2_keys[:, 0].view(np.int32).reshape(8, -1), device)
+    big_lane = to_device(packing.pack_words(big_words)[:, 0].view(np.int32)
+                         .reshape(64, -1), device)
+    lens = to_device(np.array([[len(w.encode()) for w in ds2_words]],
+                              np.int32), device)
+    cases = [("DS2 lane 0 (8, 28750), 7 splitters", ds2_lane,
+              quantiles(ds2_lane, 7)),
+             ("DS2 lane 0 (8, 28750), 127 splitters", ds2_lane,
+              quantiles(ds2_lane, 127)),
+             ("1M lane 0 (64, 16384), 127 splitters", big_lane,
+              quantiles(big_lane, 127)),
+             ("DS2 byte lengths (1, 230000), splitters 1..16", lens,
+              torch.arange(1, 17, dtype=torch.int32, device=device))]
+    narrow = {}
+    for dt in (torch.int8, torch.int16, torch.uint8, torch.uint16):
+        info = torch.iinfo(dt)
+        v = rng.integers(info.min, info.max, NARROW_N, endpoint=True)
+        v[:2] = (info.max, info.min)
+        narrow[dt] = lex.from_bits(torch.from_numpy(v.astype(np.int32)), dt)
+    bounded = [torch.from_numpy(rng.integers(0, 1024, NARROW_N).astype(
+        np.int32)) for _ in range(2)]
+    f = rng.normal(scale=10.0, size=NARROW_N).astype(np.float32)
+    pick = rng.random(NARROW_N)
+    f[pick < 0.15] = np.nan
+    f[(pick >= 0.15) & (pick < 0.25)] = -0.0
+    f[(pick >= 0.25) & (pick < 0.35)] = 0.0
+    pats = np.array([0x7FC00001, 0xFFC00000, 0x7F800001, 0xFFFFFFFF],
+                    np.uint32).view(np.float32)
+    nan = pick >= 0.9
+    f[nan] = pats[rng.integers(0, len(pats), int(nan.sum()))]
+    floats = [torch.from_numpy(f), torch.from_numpy(
+        rng.integers(-3, 3, NARROW_N).astype(np.int32))]
+
+    def on_card(t):
+        return lex.from_bits(lex.as_bits(t).to(device), t.dtype)
+
+    def path():
+        return ([ops.partition_rows(x, s) for _, x, s in cases],
+                {dt: ops.sort(on_card(x)) for dt, x in narrow.items()},
+                ops.sort_lex([on_card(t) for t in bounded],
+                             max_values=(1023, 1023)),
+                ops.sort_lex([on_card(t) for t in floats], engine="packed"))
+
+    if ops.choose_lex_engine([torch.int32] * 2, (1023, 1023)) != "packed":
+        raise AssertionError("sort_lex: bounded int32 lanes do not resolve "
+                             "to the packed engine")
+    (parts, sorted_narrow, packed_int, packed_float), counts = \
+        launch_counts(path)
+    for kname in ("partition_rows", "bitonic_rows_lex", "merge_adjacent_lex"):
+        if counts[kname] == 0:
+            raise AssertionError(f"partition and repaired sorts: {kname} "
+                                 "never launched")
+    for kname, c in counts.items():
+        report.rows[kname]["launches"] += c
+    print(f"[partition] launches of the path: {counts}")
+
+    # the repaired sorts against the CPU port and torch.sort
+    for dt, got in sorted_narrow.items():
+        want = ops.sort(narrow[dt])
+        lib = torch.sort(lex.as_bits(narrow[dt])).values
+        if not (got.dtype == dt and torch.equal(lex.as_bits(got).cpu(),
+                                                lex.as_bits(want))
+                and torch.equal(lex.as_bits(want), lib)):
+            raise AssertionError(f"sort of {NARROW_N} {dt} keys: the card, "
+                                 "the CPU port and torch.sort differ")
+        print(f"[partition] sort of {NARROW_N} {dt} keys: equal to the CPU "
+              "port and to torch.sort")
+    lanes_out = ops.sort_lex([on_card(t) for t in bounded], engine="lanes")
+    cpu_out = ops.sort_lex(bounded, max_values=(1023, 1023))
+    for g, w, c in zip(packed_int, lanes_out, cpu_out):
+        if not (torch.equal(g, w) and torch.equal(g.cpu(), c)):
+            raise AssertionError("sort_lex packed: differs from the lanes "
+                                 "engine or the CPU port")
+    cpu_out = ops.sort_lex(floats, engine="packed")
+    for g, w in zip(packed_float, cpu_out):
+        if not torch.equal(lex.as_bits(g).cpu(), lex.as_bits(w)):
+            raise AssertionError("sort_lex packed float: differs from the "
+                                 "CPU port")
+    got = torch.stack([lex.as_bits(g) for g in packed_float])[:, None]
+    inp = torch.stack([lex.as_bits(on_card(t)) for t in floats])[:, None]
+    check_sorted("sort_lex packed float", inp, got, [lex.F32, lex.I32])
+    print(f"[partition] sort_lex packed: bounded int32 lanes equal the lanes "
+          f"engine and the CPU port; float32 NaN/±0 lane a bit-level "
+          f"permutation in total order, equal to the CPU port")
+
+    # B7 against its plain version
+    err = 0
+    hist = ops.distribute(to_device(ds2_keys, device))[2]
+    for (label, x, s), (bid, cnt) in zip(cases, parts):
+        want = pk.partition_rows_plain(x, s)
+        e = max(bits_err(bid, want[0]), bits_err(cnt, want[1]))
+        lib = torch.bucketize(x, s, right=True)
+        if e or not torch.equal(bid.long(), lib) or not bool(
+                (cnt.sum(dim=1) == x.shape[1]).all()):
+            raise AssertionError(f"partition_rows {label}: kernel, plain "
+                                 "version and torch.bucketize differ")
+        err = max(err, e)
+        print(f"[partition] {pk.KERNEL.name} {label}: max_abs_err {e}")
+    if not torch.equal(parts[3][0], lens) or not torch.equal(parts[3][1][0],
+                                                            hist):
+        raise AssertionError("partition_rows of DS2's byte lengths: the ids "
+                             "are not the lengths or the counts are not "
+                             "B3's histogram")
+    print("[partition] DS2 byte lengths: ids equal the lengths, counts "
+          "equal B3's histogram")
+    for label, x, s in partition_adversarial(device):
+        if label.startswith("uint32"):
+            bid, cnt = ops.partition_rows(x.view(torch.uint32), s)
+        else:
+            bid, cnt = pk.partition_rows(x, s)
+        want = pk.partition_rows_plain(x, s)
+        e = max(bits_err(bid, want[0]), bits_err(cnt, want[1]))
+        print(f"[partition] {pk.KERNEL.name} {label} {tuple(x.shape)}, "
+              f"{s.numel()} splitters: max_abs_err {e}")
+        if e:
+            raise AssertionError(f"partition_rows {label}: kernel and plain "
+                                 "version differ")
+
+    # times at the million-word shape
+    _, x, s = cases[2]
+    r, c = x.shape
+    n_spl = s.numel()
+    ones = torch.ones_like(x, dtype=torch.int64)
+
+    def library(i):
+        ids = torch.bucketize(x, s, right=True)
+        return torch.zeros((r, n_spl + 1), dtype=torch.int64,
+                           device=x.device).scatter_add_(1, ids, ones)
+
+    report.add(pk.KERNEL, err, shape=[r, c], splitters=n_spl,
+               ms=cuda_time(lambda i: pk.partition_rows(x, s), KERNEL_ITERS),
+               plain_ms=cuda_time(lambda i: pk.partition_rows_plain(x, s),
+                                  PLAIN_ITERS, 1),
+               library_ms=cuda_time(library, KERNEL_ITERS),
+               # the least work: a binary search over the splitters sorted
+               # once (the count does not depend on their order), then one
+               # histogram add per key
+               **bound(2 * r * c * 4 + n_spl * 4 + r * (n_spl + 1) * 4,
+                       r * c * (n_spl.bit_length() + 1)))
+    row = report.rows[pk.KERNEL.name]
+    print(f"[partition] {pk.KERNEL.name}: " + ", ".join(
+        f"{key} {row[key]}" for key in ("shape", "splitters", "ms",
+                                        "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")))
+    print(f"[partition] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -750,8 +968,9 @@ def main() -> int:
                   packing.pack_words(words["chunk-3000"]))
     phase_run_merges(report, device, packing.pack_words(words["DS2"]))
     phase_main_path(report, device, list(words.items()))
-    phase_run_tier(report, device, words["DS2"],
-                   synthetic_words(1_048_576, seed=0))
+    big_words = synthetic_words(1_048_576, seed=0)
+    phase_run_tier(report, device, words["DS2"], big_words)
+    phase_partition_and_repairs(report, device, words["DS2"], big_words)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

@@ -35,7 +35,7 @@ __all__ = ["Kernel", "KERNELS", "build_all", "ptxas_report", "BUILD_DIR",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("oets.cu", "bitonic.cu", "merge.cu", "distribute.cu",
-           "runmerge.cu", "kway.cu")
+           "runmerge.cu", "kway.cu", "partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the dynamic shared memory a Hopper block may opt in to (227 KB)

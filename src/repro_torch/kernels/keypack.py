@@ -5,8 +5,9 @@ needs.
 Every lane first embeds into uint32 by the canonical key transform
 ``lex.to_order_bits``; the embedded lanes then concatenate big-endian into a
 64-bit budget rendered as a ``(hi, lo)`` uint32 pair, or one uint32 when
-the total width fits 32 bits. ``max_values`` tightens an integer lane's
-width (the shortlex length lane needs ``bit_length(4·lanes)`` bits). When
+the total width fits 32 bits. A narrow integer lane takes its own width (8
+or 16 bits); ``max_values`` tightens an integer lane's width (the shortlex
+length lane needs ``bit_length(4·lanes)`` bits). When
 the tuple does not fit the budget, the packed pair is an order-preserving
 *prefix* of it. torch cannot shift uint32, so the ``(hi, lo)`` shifts run
 in int64 and are masked back to 32 bits.
@@ -27,13 +28,17 @@ import torch
 from .lex import (F32, dtype_code, from_order_bits, lex_gt_keys, order_view,
                   scatter_merge, to_order_bits)
 
-__all__ = ["PackPlan", "PackedKeys", "plan_pack", "pack_rank_keys",
-           "pack_shortlex", "shortlex_max_values", "unpack_rank_keys",
-           "packed_cmp_lanes", "cmp_from_packed", "lex_searchsorted",
-           "packed_searchsorted", "merge_take_packed"]
+__all__ = ["PackPlan", "PackedKeys", "plan_pack", "bias_to_u32",
+           "pack_rank_keys", "pack_shortlex", "shortlex_max_values",
+           "unpack_rank_keys", "packed_cmp_lanes", "cmp_from_packed",
+           "lex_searchsorted", "packed_searchsorted", "merge_take_packed"]
 
 _BUDGET_BITS = 64
 _M32 = 0xFFFFFFFF
+
+# the packing literature's name for the per-lane key transform; one
+# definition of order bits, in lex
+bias_to_u32 = to_order_bits
 
 
 class PackPlan(NamedTuple):
@@ -68,7 +73,7 @@ def _lane_bits(dtype, max_value: Optional[int]) -> int:
         if max_value < 0:
             raise ValueError("max_values entries must be >= 0")
         return max(1, int(max_value).bit_length())
-    return 32
+    return 32 if code == F32 else torch.iinfo(dtype).bits
 
 
 def _norm_max_values(n_lanes: int, max_values):

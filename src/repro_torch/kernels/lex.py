@@ -21,8 +21,16 @@ tensors appear only at the public functions.
 A sort works on a *stacked* lane tensor ``x`` of shape ``(A, ...)`` int32:
 entry ``a`` is lane ``a`` of every element, lane 0 most significant, and
 trailing lanes are payloads that double as final tie-breaks (the
-conventions of ``repro.kernels.lex``). Only 32-bit lanes are taken;
-``int8``/``int16`` lanes wait for ROADMAP A2.
+conventions of ``repro.kernels.lex``).
+
+Narrow integer lanes (int8, int16, uint8, uint16) are taken as the
+reference takes them. The kernels read 32-bit lanes only, so
+:func:`as_bits` widens a narrow lane into int32 under the ``I32`` code
+(sign-extending the signed types, zero-extending the unsigned ones), which
+keeps its order and loses nothing, and :func:`from_bits` narrows it back
+exactly. Their order bits are the reference's: a signed narrow lane shifts
+by ``2^(bits-1)`` into ``[0, 2^bits)``, an unsigned one passes through.
+float16 and bfloat16 raise ``TypeError``, as in the reference.
 
 :func:`lex_rank_count` and :func:`lex_merge_take` are the broadcast merge
 oracles of the run tier: O(|a|·|b|) compares, kept for the tests and the
@@ -37,17 +45,20 @@ from typing import Optional, Sequence
 import torch
 
 __all__ = ["U32", "I32", "F32", "MAX_ARRAYS", "dtype_code", "as_bits",
-           "from_bits", "sentinel_bits", "sentinel_for", "codes_mask",
-           "to_order_bits", "from_order_bits", "order_view", "order_keys",
-           "lex_gt_keys", "lex_gt_lanes", "lex_rank_count", "lex_merge_take",
-           "scatter_merge"]
+           "from_bits", "sentinel_bits", "pad_bits", "sentinel_for",
+           "codes_mask", "to_order_bits", "from_order_bits", "order_view",
+           "order_keys", "lex_gt_keys", "lex_gt_lanes", "lex_rank_count",
+           "lex_merge_take", "scatter_merge", "map_lanes", "select_lanes"]
 
 # lane type codes, as the CUDA kernels read them (csrc/common.cuh)
 U32, I32, F32 = 0, 1, 2
 # most arrays one sort takes: 8 key lanes and a payload lane
 MAX_ARRAYS = 9
 
-_CODES = {torch.uint32: U32, torch.int32: I32, torch.float32: F32}
+# narrow integer lanes, widened into int32 lanes under the I32 code
+_NARROW = (torch.int8, torch.int16, torch.uint8, torch.uint16)
+_CODES = {torch.uint32: U32, torch.int32: I32, torch.float32: F32,
+          **dict.fromkeys(_NARROW, I32)}
 
 _TOP = -(1 << 31)                 # 0x80000000 as an int32
 _F32_NAN_ORDER = -2               # 0xFFFFFFFE: every NaN but the sentinel
@@ -59,25 +70,43 @@ _F32_MAG = 0x7FFFFFFF
 
 
 def dtype_code(dtype) -> int:
-    """The lane code of a torch dtype; raises ``TypeError`` for any dtype
-    but uint32, int32 and float32."""
+    """The lane code of a torch dtype: uint32, int32 and float32 lanes have
+    their own; int8, int16, uint8 and uint16 lanes widen into ``I32``.
+    Raises ``TypeError`` for any other dtype."""
     try:
         return _CODES[dtype]
     except KeyError:
-        raise TypeError(f"lanes of dtype {dtype} are not supported: the port "
-                        "takes 32-bit lanes only (int8/int16 wait for "
-                        "ROADMAP A2)") from None
+        raise TypeError(f"cannot order-transform lanes of dtype {dtype}: the "
+                        "port takes int8, int16, int32, uint8, uint16, uint32 "
+                        "and float32 lanes") from None
 
 
 def as_bits(x: torch.Tensor) -> torch.Tensor:
-    """The int32 view of a 32-bit lane (no copy)."""
+    """The int32 lane of ``x``: a 32-bit lane's bits (a view, no copy), a
+    narrow integer lane widened — sign-extended if signed, zero-extended if
+    not (a copy; uint16 goes through its int16 bit view, since torch
+    computes little on ``torch.uint16``)."""
     dtype_code(x.dtype)
-    return x if x.dtype == torch.int32 else x.view(torch.int32)
+    if x.dtype == torch.int32:
+        return x
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16).to(torch.int32) & 0xFFFF
+    if x.dtype in _NARROW:
+        return x.to(torch.int32)
+    return x.view(torch.int32)
 
 
 def from_bits(bits: torch.Tensor, dtype) -> torch.Tensor:
-    """View int32 bits as ``dtype`` (no copy)."""
-    return bits if dtype == torch.int32 else bits.view(dtype)
+    """Invert :func:`as_bits`: int32 bits viewed as a 32-bit ``dtype`` (no
+    copy), or narrowed back into a narrow integer ``dtype`` (exact for
+    values of its range)."""
+    if dtype == torch.int32:
+        return bits
+    if dtype == torch.uint16:
+        return bits.to(torch.int16).view(torch.uint16)
+    if dtype in _NARROW:
+        return bits.to(dtype)
+    return bits.view(dtype)
 
 
 def sentinel_bits(code: int) -> int:
@@ -85,14 +114,25 @@ def sentinel_bits(code: int) -> int:
     return (1 << 31) - 1 if code == I32 else -1
 
 
+def pad_bits(dtype) -> int:
+    """The int32 lane bits of ``dtype``'s own padding value
+    (:func:`sentinel_for`): a narrow lane's ``iinfo.max`` widened, else
+    :func:`sentinel_bits` of its code."""
+    if dtype in _NARROW:
+        return torch.iinfo(dtype).max
+    return sentinel_bits(dtype_code(dtype))
+
+
 def sentinel_for(dtype) -> torch.Tensor:
     """The lex-maximal padding value of ``dtype`` as a 0-d tensor:
     ``iinfo.max`` for ints (the positive max for signed) and, for float32,
     the all-ones-bits NaN, which the order places strictly above every other
     value including the other NaNs. Built from its bits, never from a float
-    literal, so the NaN payload survives."""
-    bits = torch.tensor(sentinel_bits(dtype_code(dtype)), dtype=torch.int32)
-    return from_bits(bits, dtype)
+    literal, so the NaN payload survives. Other floats get a NaN, as in the
+    reference (no sort takes them)."""
+    if dtype.is_floating_point and dtype != torch.float32:
+        return torch.tensor(float("nan"), dtype=dtype)
+    return from_bits(torch.tensor(pad_bits(dtype), dtype=torch.int32), dtype)
 
 
 def codes_mask(codes: Sequence[int]) -> int:
@@ -123,18 +163,28 @@ def _order_bits_of(bits: torch.Tensor, code: int) -> torch.Tensor:
     return _f32_order_bits(bits)
 
 
+def _narrow_half(dtype) -> int:
+    """The shift of a signed narrow lane's order bits, ``2^(bits-1)``; 0
+    for an unsigned one."""
+    return -torch.iinfo(dtype).min
+
+
 def to_order_bits(x: torch.Tensor,
                   max_value: Optional[int] = None) -> torch.Tensor:
     """Order-preserving uint32 embedding of one lane, returned as a
     ``torch.uint32`` tensor — ``repro.kernels.lex.to_order_bits`` bit for
     bit. ``max_value`` asserts a ``[0, max_value]`` range on an integer
-    lane, whose values then pass through as they are."""
+    lane, whose values then pass through as they are. A narrow lane's bits
+    lie in ``[0, 2^bits)``: signed ones shift by ``2^(bits-1)`` (not the
+    32-bit sign flip), unsigned ones pass through."""
     code = dtype_code(x.dtype)
     bits = as_bits(x)
     if max_value is not None:
         if code == F32:
             raise TypeError("max_values only applies to integer lanes")
         return bits.view(torch.uint32)
+    if x.dtype in _NARROW:
+        return (bits + _narrow_half(x.dtype)).view(torch.uint32)
     return _order_bits_of(bits, code).view(torch.uint32)
 
 
@@ -145,6 +195,9 @@ def from_order_bits(v: torch.Tensor, dtype,
     all-ones NaN and the collapsed NaN slot as the canonical quiet NaN."""
     code = dtype_code(dtype)
     v = as_bits(v)
+    if dtype in _NARROW:
+        return from_bits(v if max_value is not None
+                         else v - _narrow_half(dtype), dtype)
     if max_value is not None or code == U32:
         return from_bits(v, dtype)
     if code == I32:
@@ -244,3 +297,13 @@ def lex_merge_take(a_lanes, b_lanes) -> list:
         rank_b = torch.arange(nb, device=dev) + lex_rank_count(
             a_lanes, b_lanes, strict=False)
     return scatter_merge(a_lanes, b_lanes, rank_a, rank_b)
+
+
+def map_lanes(fn, arrs) -> list:
+    """Apply ``fn`` (a partner shuffle: roll, flip, ...) to every lane."""
+    return [fn(a) for a in arrs]
+
+
+def select_lanes(mask: torch.Tensor, on_true, on_false) -> list:
+    """``torch.where`` across parallel lane lists (the swap step)."""
+    return [torch.where(mask, t, f) for t, f in zip(on_true, on_false)]

@@ -7,13 +7,18 @@ Entry points:
     significant, ``vals`` the final tie-break. ``choose_plan`` picks the
     tier: the OETS kernel (B1) up to 128 columns, the bitonic kernel (B2) up
     to 1024, and beyond that ``core/blocksort`` (B2 locally, then rounds of
-    the merge kernel, B4).
+    the merge kernel, B4). ``choose_lex_engine`` picks the lane engine:
+    'lanes', or 'packed', which sorts the tuple's rank keys
+    (``keypack.pack_rank_keys``) in fewer lanes.
   * ``segmented_sort(keys, counts)`` — one batched sort of the paper's
     ``(num_buckets, capacity, lanes)`` bucket tensor.
   * ``distribute(keys)`` / ``bucketize(keys, capacity)`` /
     ``scatter_to_buckets`` — the paper's distribute phase: the distribute
     kernel (B3), then one scatter into the bucket tensor.
-  * ``sort_rows_lex`` — the single-block row sorts.
+  * ``sort_rows_lex`` / ``sort_rows`` / ``sort_rows_kv`` — the
+    single-block row sorts.
+  * ``partition_rows(keys, splitters)`` — bucket ids and per-row
+    histograms against a splitter list: the partition kernel (B7).
   * ``merge_sorted_lex(a, b)`` / ``merge_sorted`` — merge two sorted runs:
     the merge-path kernel (B5) or the packed rank + scatter tier;
     ``merge_runs_lex(runs)`` — merge k sorted runs in one pass: the k-way
@@ -34,7 +39,10 @@ permutation of its input.
 
 Rows are not padded to the TPU's 8 sublanes; they never change a row's
 result. ``uint32`` data is ``torch.uint32`` at these functions and an int32
-view inside them.
+view inside them. Narrow integer lanes (int8, int16, uint8, uint16) are
+widened into int32 lanes before a kernel and narrowed back after it
+(``lex.as_bits``/``lex.from_bits``); widening keeps order and loses
+nothing, so every result is the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -47,18 +55,22 @@ import torch
 from ..runtime.failure import CapacityOverflow
 from .bitonic_kernel import bitonic_rows_lex
 from .distribute_kernel import distribute_rows
-from .keypack import merge_take_packed, plan_pack
+from .keypack import (merge_take_packed, pack_rank_keys, plan_pack,
+                      unpack_rank_keys)
 from .kway_kernel import merge_runs_kway_kernel, merge_runs_kway_take
-from .lex import as_bits, dtype_code, from_bits, lex_merge_take, sentinel_bits
+from .lex import (F32, as_bits, dtype_code, from_bits, lex_merge_take,
+                  pad_bits, sentinel_bits)
 from .oets_kernel import oets_rows_lex
+from .partition_kernel import partition_rows as partition_rows_kernel
 from .runmerge_kernel import (DEFAULT_MERGE_BLOCK, check_runs,
                               merge_runs_lex_kernel)
 
 __all__ = ["sort", "sort_kv", "sort_lex", "segmented_sort", "distribute",
            "bucketize", "BucketizeResult", "scatter_to_buckets",
            "choose_plan", "choose_lex_engine", "execution_provenance",
-           "sort_rows_lex", "choose_merge_engine", "merge_sorted_lex",
-           "merge_sorted", "choose_kway_engine", "merge_runs_lex"]
+           "sort_rows_lex", "sort_rows", "sort_rows_kv", "partition_rows",
+           "choose_merge_engine", "merge_sorted_lex", "merge_sorted",
+           "choose_kway_engine", "merge_runs_lex", "DEFAULT_MERGE_BLOCK"]
 
 log = logging.getLogger("repro_torch.kernels")
 
@@ -184,6 +196,23 @@ def sort_rows_lex(arrs, algorithm: str = "oets"):
     return list(_unstack(out, [a.dtype for a in arrs]))
 
 
+def sort_rows(x: torch.Tensor, algorithm: str = "oets") -> torch.Tensor:
+    """Sort each row of a ``(rows, cols)`` tensor ascending with one
+    single-block kernel: 'oets' (the paper's) or 'bitonic'."""
+    (out,) = sort_rows_lex([x], algorithm=algorithm)
+    return out
+
+
+def sort_rows_kv(keys: torch.Tensor, vals: torch.Tensor,
+                 algorithm: str = "oets"):
+    """Row-wise key-value :func:`sort_rows`; ``vals`` shares ``keys``'
+    shape and breaks ties."""
+    if keys.shape != vals.shape:
+        raise ValueError("keys and vals must have identical shapes")
+    ok, ov = sort_rows_lex([keys, vals], algorithm=algorithm)
+    return ok, ov
+
+
 def sort(x: torch.Tensor, algorithm: str = "auto",
          block_size: int | None = None) -> torch.Tensor:
     """Sort a 1-D tensor or each row of a ``(rows, cols)`` tensor ascending.
@@ -211,11 +240,15 @@ def sort_lex(keys_lanes, vals=None, algorithm: str = "auto",
     lane 0 most significant; ``vals`` rides the permutation as the final
     tie-break. Returns the tuple of sorted lanes, or ``(lanes, vals)``.
 
-    ``engine``: 'lanes' (every lane a comparator lane) or 'auto'. The
-    packed engine, which 'auto' picks when the tuple packs losslessly into
-    fewer lanes, is not ported yet (ROADMAP A6) and raises
-    ``NotImplementedError``; the main path's full uint32 word lanes never
-    pack losslessly, so they always resolve to 'lanes'."""
+    ``engine``: 'lanes' (every lane a comparator lane), 'packed' (sort the
+    tuple's 1-2 rank-key lanes, ``keypack.pack_rank_keys``, then unpack —
+    or, when a float lane is present, sort ``(rank keys, iota)`` and gather
+    every original lane and ``vals`` through the permutation, which keeps
+    every float bit; honoured only when the packing is lossless, else
+    'lanes'), or 'auto' (:func:`choose_lex_engine`). ``max_values``:
+    optional per-lane upper bounds that tighten the packed widths. The main
+    path's full uint32 word lanes never pack losslessly, so they resolve to
+    'lanes'."""
     lanes = list(keys_lanes)
     if not lanes:
         raise ValueError("need at least one key lane")
@@ -224,9 +257,8 @@ def sort_lex(keys_lanes, vals=None, algorithm: str = "auto",
         raise ValueError("all lanes (and vals) must have identical shapes")
     if choose_lex_engine([a.dtype for a in lanes], max_values,
                          engine) == "packed":
-        raise NotImplementedError("sort_lex: the packed rank-key engine is "
-                                  "not ported yet (ROADMAP A6); pass "
-                                  "engine='lanes'")
+        return _sort_lex_packed(lanes, vals, algorithm, block_size,
+                                max_values)
     views = [_as_rows(a) for a in arrs]
     vec = views[0][1]
     a2 = [v[0] for v in views]
@@ -241,6 +273,33 @@ def sort_lex(keys_lanes, vals=None, algorithm: str = "auto",
     if vals is None:
         return out
     return out[:-1], out[-1]
+
+
+def _sort_lex_packed(lanes, vals, algorithm, block_size, max_values):
+    """:func:`sort_lex`'s packed engine (``repro/kernels/ops.py:282-307``)."""
+    packed = pack_rank_keys(lanes, max_values)
+    if any(dtype_code(a.dtype) == F32 for a in lanes):
+        # the float order bits are compare-only (NaN payloads collapse,
+        # -0.0 normalises), so sort (rank keys, iota) and gather the
+        # original lanes through the permutation
+        x0 = lanes[0]
+        iota = torch.arange(x0.shape[-1], dtype=torch.int32,
+                            device=x0.device).expand(x0.shape).contiguous()
+        perm = sort_lex(tuple(packed.lanes) + (iota,), algorithm=algorithm,
+                        block_size=block_size, engine="lanes")[-1].long()
+
+        def gather(a):
+            return from_bits(as_bits(a).gather(-1, perm), a.dtype)
+
+        out = tuple(gather(a) for a in lanes)
+        return out if vals is None else (out, gather(vals))
+    out_packed = sort_lex(packed.lanes, vals=vals, algorithm=algorithm,
+                          block_size=block_size, engine="lanes")
+    if vals is not None:
+        out_packed, out_vals = out_packed
+    out = tuple(unpack_rank_keys(out_packed, [a.dtype for a in lanes],
+                                 max_values))
+    return out if vals is None else (out, out_vals)
 
 
 def segmented_sort(keys: torch.Tensor, counts: torch.Tensor | None = None,
@@ -261,7 +320,7 @@ def segmented_sort(keys: torch.Tensor, counts: torch.Tensor | None = None,
     if counts is not None:
         slot = torch.arange(keys.shape[1], device=keys.device)
         mask = slot[None, :] >= counts.to(keys.device)[:, None]
-        bits = torch.where(mask[..., None], sentinel_bits(code), bits)
+        bits = torch.where(mask[..., None], pad_bits(keys.dtype), bits)
     n_lanes = keys.shape[2]
     x = _sort_views([bits[..., l] for l in range(n_lanes)], [code] * n_lanes,
                     algorithm, block_size)
@@ -471,3 +530,25 @@ def merge_runs_lex(runs, engine: str = "auto", n_cmp: int | None = None,
         return merge_runs_kway_kernel(nonempty, n_cmp=n_cmp,
                                       max_values=max_values, block=block_size)
     return merge_runs_kway_take(nonempty, n_cmp=n_cmp, max_values=max_values)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cast to int32 as ``astype(jnp.int32)`` casts it: 32-bit lanes
+    keep their bits (uint32 wraps), narrow ints widen, floats truncate
+    toward zero."""
+    if x.dtype in (torch.int32, torch.uint32, torch.uint16):
+        return as_bits(x)
+    return x.to(torch.int32)
+
+
+def partition_rows(keys: torch.Tensor, splitters: torch.Tensor):
+    """Bucket each element of ``(rows, cols)`` ``keys`` by ``splitters``
+    (the paper's distribute-into-sub-arrays step), both cast to int32:
+    ``bucket id = #{j : key >= splitters[j]}`` — ``searchsorted(side=
+    'right')`` for sorted splitters, a count for any. Returns ``(bucket_ids
+    (rows, cols), counts (rows, len(splitters) + 1))``, both int32, from the
+    partition kernel (B7)."""
+    if keys.dim() != 2 or splitters.dim() != 1:
+        raise ValueError("expected (rows, cols) keys and 1-D splitters")
+    return partition_rows_kernel(_as_int32(keys).contiguous(),
+                                 _as_int32(splitters).contiguous())

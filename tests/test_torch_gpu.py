@@ -15,7 +15,7 @@ from repro_torch.data import synthetic_words
 from repro_torch.interop import to_numpy
 from repro_torch.kernels import (bitonic_kernel, distribute_kernel,
                                  kway_kernel, lex, merge_kernel, oets_kernel,
-                                 runmerge_kernel)
+                                 ops, partition_kernel, runmerge_kernel)
 from repro_torch.kernels.keypack import packed_cmp_lanes
 from repro_torch.pipeline import chunked_sort_words
 from repro_torch.pipeline.validate import order_bits_view
@@ -231,3 +231,89 @@ def test_chunked_sort_on_the_card_launches_its_merge_kernel(cuda, engine,
                              merge_engine=engine, device=cuda)
     assert kernel.launches > 0
     assert got == sorted(words, key=lambda w: (len(w.encode()), w.encode()))
+
+
+def _partition_case(kind):
+    """``(keys (R, C), splitters (S,))`` int32 numpy arrays of ``kind``."""
+    rng = np.random.default_rng(7)
+    info = np.iinfo(np.int32)
+    if kind == "extremes":
+        keys = rng.integers(-5, 5, (3, 1000)).astype(np.int32)
+        keys[:, ::3], keys[:, 1::3] = info.max, info.min
+        return keys, np.array([info.min, -1, 0, 4, info.max], np.int32)
+    keys = rng.integers(-1000, 1000, (64, 16_384)).astype(np.int32)
+    if kind == "127 sorted":
+        return keys, np.sort(rng.choice(2000, 127, replace=False) - 1000
+                             ).astype(np.int32)
+    if kind == "unsorted, duplicated":
+        return keys[:8, :130], np.array([500, -3, 7, 7, 7, -900, 500],
+                                        np.int32)
+    if kind == "none":
+        return keys[:1, :130], np.zeros(0, np.int32)
+    return keys[:5], np.sort(rng.integers(-1000, 1000, 5000)).astype(
+        np.int32)                                    # "5000 splitters"
+
+
+@pytest.mark.parametrize("kind", ["extremes", "127 sorted",
+                                  "unsorted, duplicated", "none",
+                                  "5000 splitters"])
+def test_partition_kernel_matches_plain(cuda, kind):
+    keys, spl = (torch.from_numpy(a) for a in _partition_case(kind))
+    before = partition_kernel.KERNEL.launches
+    got = partition_kernel.partition_rows(keys.to(cuda), spl.to(cuda))
+    assert partition_kernel.KERNEL.launches == before + 1
+    want = partition_kernel.partition_rows_plain(keys, spl)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_partition_rows_wraps_uint32_keys_on_the_card(cuda):
+    keys = torch.tensor([[-1294967296, 1, 2, 5]], dtype=torch.int32).view(
+        torch.uint32)                                # 3,000,000,000 first
+    spl = torch.tensor([2], dtype=torch.int32)
+    bid, cnt = ops.partition_rows(keys.view(torch.int32).to(cuda).view(
+        torch.uint32), spl.to(cuda))
+    assert bid.cpu().tolist() == [[0, 0, 1, 1]]
+    assert cnt.cpu().tolist() == [[2, 2]]
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.uint8,
+                                   torch.uint16])
+@pytest.mark.parametrize("n", [100, 1000, 20_000])
+def test_narrow_sort_on_the_card_matches_the_cpu(cuda, dtype, n):
+    """OETS, bitonic and blocksort tiers, through widening and back."""
+    info = torch.iinfo(dtype)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                      endpoint=True).astype(np.int64))
+    x[:2] = torch.tensor([info.max, info.min])
+    x = x.to(torch.int32)
+    x = lex.from_bits(x, dtype)
+    got = ops.sort(lex.from_bits(lex.as_bits(x).to(cuda), dtype))
+    assert got.dtype == dtype
+    want = ops.sort(x)
+    assert torch.equal(lex.as_bits(got).cpu(), lex.as_bits(want))
+    assert torch.equal(lex.as_bits(want), torch.sort(lex.as_bits(x)).values)
+
+
+@pytest.mark.parametrize("n", [96, 1000, 20_000])
+def test_packed_sort_lex_on_the_card_matches_the_cpu(cuda, n):
+    """Two bounded int32 lanes resolve to the packed engine and equal the
+    lanes engine bit for bit; a float32 lane of NaNs and ±0 beside an int32
+    lane takes the (rank keys, iota) gather, whose order is unique, and
+    equals the CPU's bit for bit."""
+    rng = np.random.default_rng(n)
+    lanes = [torch.from_numpy(rng.integers(0, 1024, n).astype(np.int32))
+             .to(cuda) for _ in range(2)]
+    assert ops.choose_lex_engine([torch.int32] * 2, (1023, 1023)) == "packed"
+    got = ops.sort_lex(lanes, max_values=(1023, 1023))
+    _same_bits(got, ops.sort_lex(lanes, engine="lanes"))
+    f = rng.normal(size=n).astype(np.float32)
+    pick = rng.random(n)
+    f[pick < 0.2] = np.nan
+    f[(pick >= 0.2) & (pick < 0.3)] = -0.0
+    f[pick >= 0.9] = np.array([0x7FC00001], np.uint32).view(np.float32)
+    lanes = [torch.from_numpy(f).to(cuda),
+             torch.from_numpy(rng.integers(-3, 3, n).astype(np.int32)).to(cuda)]
+    got = ops.sort_lex(lanes, engine="packed")
+    _same_bits(got, ops.sort_lex([l.cpu() for l in lanes], engine="packed"))

@@ -17,6 +17,10 @@ _SPECIALS = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
                      np.uint32).view(np.float32)
 
 
+_NARROW = {torch.int8: np.int8, torch.int16: np.int16, torch.uint8: np.uint8,
+           torch.uint16: np.uint16}
+
+
 def _bits(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int32).numpy().view(np.uint32)
 
@@ -74,6 +78,14 @@ def test_sentinel_for_matches_reference(dtype):
     assert got.view(torch.int32).item() == int(want.view(np.int32))
 
 
+@pytest.mark.parametrize("dtype", list(_NARROW), ids=str)
+def test_narrow_sentinel_for_matches_reference(dtype):
+    got = lex.sentinel_for(dtype)
+    assert got.dtype == dtype
+    want = np.asarray(rlex.sentinel_for(_NARROW[dtype]))
+    assert int(lex.as_bits(got)) == int(want) == lex.pad_bits(dtype)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_lex_gt_lanes_matches_reference(seed):
     """A float32 NaN lane, a duplicate-heavy int32 lane and a
@@ -100,5 +112,58 @@ def test_order_view_orders_like_order_bits():
 
 
 def test_narrow_lanes_wait_for_a2():
-    with pytest.raises(TypeError, match="A2"):
-        lex.dtype_code(torch.int16)
+    """Narrow integer lanes are taken, as in the reference: they widen into
+    int32 lanes under the I32 code, keep their values through the round
+    trip, and their order bits are the reference's (a shift by
+    2^(bits-1), not the 32-bit sign flip)."""
+    x = np.array([5, -3, 127, -128, 0, 7], np.int16)
+    t = torch.from_numpy(x)
+    assert lex.dtype_code(torch.int16) == lex.I32
+    bits = lex.as_bits(t)
+    assert bits.dtype == torch.int32
+    np.testing.assert_array_equal(bits.numpy(), x.astype(np.int32))
+    assert torch.equal(lex.from_bits(bits, torch.int16), t)
+    np.testing.assert_array_equal(
+        _bits(lex.to_order_bits(t)), np.asarray(rlex.to_order_bits(
+            jnp.asarray(x))))
+    for dtype in (torch.float16, torch.bfloat16, torch.int64):
+        with pytest.raises(TypeError):
+            lex.dtype_code(dtype)
+
+
+
+@pytest.mark.parametrize("gen", ["random", "sentinel", "dup_heavy"])
+@pytest.mark.parametrize("dtype", list(_NARROW), ids=str)
+def test_narrow_order_bits_match_reference(dtype, gen):
+    x = _lane(gen, _NARROW[dtype], seed=13)
+    got = lex.to_order_bits(torch.from_numpy(x))
+    want = np.asarray(rlex.to_order_bits(jnp.asarray(x)))
+    np.testing.assert_array_equal(_bits(got), want)
+    back = lex.from_order_bits(got, dtype)
+    assert back.dtype == dtype
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(rlex.from_order_bits(jnp.asarray(want),
+                                                      x.dtype)))
+    np.testing.assert_array_equal(back.numpy(), x)
+    bound = np.abs(x.astype(np.int64)).max()
+    got = lex.to_order_bits(torch.from_numpy(np.abs(x)), max_value=bound)
+    np.testing.assert_array_equal(
+        _bits(got), np.asarray(rlex.to_order_bits(jnp.asarray(np.abs(x)),
+                                                  bound)))
+
+
+def test_map_and_select_lanes_match_reference():
+    rng = np.random.default_rng(4)
+    lanes = [rng.integers(-9, 9, 12).astype(np.int32) for _ in range(3)]
+    other = [rng.integers(-9, 9, 12).astype(np.int32) for _ in range(3)]
+    mask = rng.random(12) < 0.5
+    tl = [torch.from_numpy(a) for a in lanes]
+    got = lex.select_lanes(torch.from_numpy(mask),
+                           lex.map_lanes(lambda a: torch.roll(a, 1), tl),
+                           [torch.from_numpy(b) for b in other])
+    want = rlex.select_lanes(jnp.asarray(mask),
+                             rlex.map_lanes(lambda a: jnp.roll(a, 1),
+                                            [jnp.asarray(a) for a in lanes]),
+                             [jnp.asarray(b) for b in other])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

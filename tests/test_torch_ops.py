@@ -98,12 +98,77 @@ def test_sort_lex_lanes_matches_reference(gen):
 
 
 def test_sort_lex_packed_engine_waits_for_a6():
-    lanes = [torch.tensor([3, 1, 2], dtype=torch.int32)] * 2
-    assert ops.choose_lex_engine([l.dtype for l in lanes], (7, 7)) == "packed"
-    with pytest.raises(NotImplementedError, match="A6"):
-        ops.sort_lex(lanes, max_values=(7, 7))
+    """The packed engine, which 'auto' picks when the tuple packs
+    losslessly into fewer lanes, sorts as the reference's does; full uint32
+    word lanes never pack losslessly and stay on 'lanes'."""
+    lanes = [np.array([3, 1, 2, 1, 7], np.int32),
+             np.array([0, 7, 5, 2, 7], np.int32)]
+    assert ops.choose_lex_engine([torch.int32] * 2, (7, 7)) == "packed"
+    got = ops.sort_lex([_t(a) for a in lanes], max_values=(7, 7))
+    want = rops.sort_lex([jnp.asarray(a) for a in lanes], max_values=(7, 7),
+                         interpret=True)
+    _assert_conforms("random", [to_numpy(g) for g in got], list(want))
     words = [torch.tensor([1, 2], dtype=torch.uint32)] * 4
     assert ops.choose_lex_engine([w.dtype for w in words]) == "lanes"
+
+
+@pytest.mark.parametrize("engine", ["auto", "packed"])
+@pytest.mark.parametrize("gen", ["random", "dup_heavy", "tile_boundary",
+                                 "empty"])
+def test_sort_lex_packed_integer_lanes_match_reference(gen, engine):
+    """Bounded int32 and uint32 lanes that pack into one rank-key lane,
+    with a payload, 1-D; 'auto' resolves to 'packed'."""
+    rng = np.random.default_rng(zlib.crc32(gen.encode()))
+    n = default_n(gen)
+    bounds = (1023, 1023, 255)
+    lanes = [rng.integers(0, b + 1, n).astype(dt)
+             for b, dt in zip(bounds, (np.int32, np.uint32, np.int32))]
+    vals = rng.permutation(n).astype(np.int32)
+    assert ops.choose_lex_engine([_t(a).dtype for a in lanes], bounds,
+                                 engine) == "packed"
+    got, gv = ops.sort_lex([_t(a) for a in lanes], vals=_t(vals),
+                           engine=engine, max_values=bounds)
+    want, wv = rops.sort_lex([jnp.asarray(a) for a in lanes],
+                             vals=jnp.asarray(vals), engine=engine,
+                             max_values=bounds, interpret=True)
+    _assert_conforms(gen, [to_numpy(g) for g in got] + [to_numpy(gv)],
+                     list(want) + [wv])
+
+
+@pytest.mark.parametrize("algorithm", ["oets", "bitonic", "blocksort"])
+@pytest.mark.parametrize("gen", ["nan", "sentinel", "dup_heavy"])
+def test_sort_lex_packed_float_lanes_match_reference(gen, algorithm):
+    """A float32 lane and two bounded int32 lanes, which 'auto' packs into
+    two rank-key lanes, two rows and a payload: sorted by (rank keys, iota) and the originals
+    gathered, so every NaN payload and -0.0 survives — held to the
+    reference's contract: the same tuples bit for bit, sorted under the
+    order bits."""
+    rng = np.random.default_rng(zlib.crc32(f"{gen}/{algorithm}".encode()))
+    n = 300 if algorithm == "blocksort" else default_n(gen)
+    lanes = [fill_elements(gen, rng, 2 * n, np.float32).reshape(2, n),
+             rng.integers(0, 8, (2, n)).astype(np.int32),
+             rng.integers(0, 4, (2, n)).astype(np.int32)]
+    bounds = (None, 7, 3)
+    vals = rng.permutation(2 * n).astype(np.int32).reshape(2, n)
+    bs = _BLOCK if algorithm == "blocksort" else None
+    assert ops.choose_lex_engine([torch.float32, torch.int32, torch.int32],
+                                 bounds) == "packed"
+    got, gv = ops.sort_lex([_t(a) for a in lanes], vals=_t(vals),
+                           algorithm=algorithm, block_size=bs,
+                           max_values=bounds)
+    want, wv = rops.sort_lex([jnp.asarray(a) for a in lanes],
+                             vals=jnp.asarray(vals), algorithm=algorithm,
+                             block_size=bs, max_values=bounds,
+                             interpret=True)
+    got = [to_numpy(g) for g in got]
+    for r in range(2):
+        check_lanes_sorted([g[r] for g in got], what="port output")
+        tuples = lambda ls: sorted(zip(*[l[r].view(np.uint32).tolist()
+                                         for l in ls]))
+        assert tuples(got + [to_numpy(gv)]) == tuples(lanes + [vals])
+    # the iota tie-break makes the permutation unique, so the gathered
+    # lanes are also the reference's bit for bit
+    _assert_conforms("random", got + [to_numpy(gv)], list(want) + [wv])
 
 
 @pytest.mark.parametrize("cols,algorithm", [(1, "auto"), (128, "auto"),

@@ -97,3 +97,36 @@ def test_chip_smoke_fails_without_a_card_or_outside_a_checkout(tmp_path):
         res = _run([str(ROOT / "chip_smoke.py")])
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+# names of repro.kernels that exist only for the TPU, each with the port's
+# counterpart (a module attribute of repro_torch.kernels)
+_TPU_ONLY = {
+    # how Pallas lowers (compiled or interpreted); the port's kernels are
+    # CUDA, and where the ops run is in execution_provenance
+    "pallas_lowering": "ops.execution_provenance",
+    "merge_adjacent_pallas": "merge_kernel.merge_adjacent_lex",
+    "merge_adjacent_kv_pallas": "merge_kernel.merge_adjacent_lex",
+    "merge_adjacent_lex_pallas": "merge_kernel.merge_adjacent_lex",
+    "merge_runs_pallas": "runmerge_kernel.merge_runs_lex_kernel",
+    "merge_runs_lex_pallas": "runmerge_kernel.merge_runs_lex_kernel",
+}
+
+
+def test_every_public_kernel_name_has_a_counterpart():
+    """Every name ``repro.kernels`` exports is exported by
+    ``repro_torch.kernels`` too, or is TPU-only and has the counterpart
+    listed above."""
+    import importlib
+
+    from repro import kernels as ref
+    from repro_torch import kernels as port
+    for name in ref.__all__:
+        if name in _TPU_ONLY:
+            assert name not in port.__all__
+            module, attr = _TPU_ONLY[name].split(".")
+            mod = importlib.import_module(f"repro_torch.kernels.{module}")
+            assert callable(getattr(mod, attr)), name
+            continue
+        assert name in port.__all__, name
+        assert hasattr(port, name), name
