@@ -18,9 +18,11 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      on the card and its output to be in order (for the row sorts a chain
      of stable ``torch.sort`` passes is the independent check; for the run
      merges the torch tier and the total-order contract), and time kernel,
-     plain version and library call or torch tier. The merge-path kernel
-     (B5) runs at the last tournament round of DS2 chunked at 4096 words,
-     the k-way kernel (B6) at DS2's 57 runs;
+     plain version and library call or torch tier. The merge kernel (B4)
+     also runs at every power-of-two block from 1 to its shared-memory cap,
+     at offsets 0 and ``block``, for 1, 2, 3, 4, 5, 8 and 9 lanes of each
+     code and fill. The merge-path kernel (B5) runs at the last tournament round
+     of DS2 chunked at 4096 words, the k-way kernel (B6) at DS2's 57 runs;
   3. main path — sort a 500-word chunk (OETS tier), a 3,000-word chunk
      (bitonic tier) and the paper's DS1 and DS2 (blocksort: bitonic + merge)
      through ``bucketed_sort_words`` and ``sorted_packed``; then the run
@@ -42,9 +44,16 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      result. The counters are read around those calls; then B7 is held to
      its plain version bit for bit on each input and on adversarial ones
      (int32 extremes, keys equal to splitters, duplicated and unsorted
-     splitters, none, C = 130 with R = 1, uint32 keys past 2^31), and
-     timed beside its plain version and ``torch.bucketize`` plus a
-     scatter-add.
+     splitters, none, C = 130 with R = 1, uint32 keys past 2^31, and a
+     sweep of splitter counts from 0 to ``MAX_SPLITTERS`` at ragged column
+     counts), and timed beside its plain version and ``torch.bucketize``
+     plus a scatter-add.
+
+Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
+so the host's time per call counts where it is longer) and ``device_ms``
+(the device's own time per call, from ``torch.profiler`` over the same
+calls; ``device_ms_source`` says whether the profiler or the CUDA-graph
+fallback gave it).
 
 Then it prints the card's name and power limit as ``nvidia-smi`` gives them,
 one JSON line with every kernel's numbers, and last
@@ -77,6 +86,21 @@ E2E_RUNS = 5
 MAIN_PATH = ("oets_rows_lex", "bitonic_rows_lex", "distribute_rows",
              "merge_adjacent_lex")
 NARROW_N = 230_000
+# the CUDA functions behind each kernel's C entry point, as the profiler
+# names them
+DEVICE_NAMES = {
+    "oets_rows_lex": ("oets_rows_kernel",),
+    "bitonic_rows_lex": ("bitonic_rows_kernel",),
+    "distribute_rows": ("distribute_count_kernel", "distribute_scan_kernel",
+                        "distribute_offset_kernel"),
+    "merge_adjacent_lex": ("merge_window_kernel", "merge_regs_kernel"),
+    "merge_runs_lex": ("runmerge_kernel",),
+    "merge_runs_kway": ("kway_kernel",),
+    "partition_rows": ("partition_prep_kernel", "partition_kernel"),
+}
+MERGE_SWEEP_LANES = (1, 2, 3, 4, 5, 8, 9)
+SPLITTER_SWEEP = (0, 1, 2, 31, 32, 33, 127, 128, 1000)   # and MAX_SPLITTERS
+SPLITTER_SWEEP_COLS = (1, 3, 130, 16_385)
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -94,6 +118,51 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time(kernel_name: str, fn, iters: int = KERNEL_ITERS):
+    """Device milliseconds per call of ``fn(i)`` spent in the CUDA functions
+    of ``kernel_name`` (:data:`DEVICE_NAMES`), where the number comes from,
+    and its split by function: ``torch.profiler``'s CUDA time by kernel
+    name over ``iters`` calls after a warm-up ('profiler'), or, where the
+    profiler shows no device time, CUDA events around the replay of a CUDA
+    graph of ``iters`` calls, which takes the host's launch cost out of the
+    window ('graph events', no split)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    names = DEVICE_NAMES[kernel_name]
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        name = next((n for n in names if n in ev.key), None)
+        if name is not None:
+            t = getattr(ev, "device_time_total", None)
+            t = t if t is not None else ev.cuda_time_total
+            split[name] = split.get(name, 0.0) + t / iters / 1e3
+    if sum(split.values()) > 0:
+        return sum(split.values()), "profiler", split
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    return (cuda_time(lambda i: graph.replay(), 5, 1) / iters,
+            "graph events", None)
+
+
+def device_fields(kernel_name: str, fn) -> dict:
+    """``device_ms`` and its source, and for a kernel of more than one CUDA
+    function its split by function."""
+    ms, source, split = device_time(kernel_name, fn)
+    out = {"device_ms": ms, "device_ms_source": source}
+    if split and len(DEVICE_NAMES[kernel_name]) > 1:
+        out["device_ms_by_function"] = split
+    return out
 
 
 def nvidia_smi() -> str:
@@ -254,16 +323,66 @@ def check_row_kernel(kernel, wrapper, plain, x, codes, label, **kw):
 
 
 def time_row_kernel(kernel, wrapper, plain, lib, x, codes, **kw):
-    """Kernel over distinct fresh copies (in place), plain version, library."""
+    """Kernel over distinct fresh copies (in place), its device time over
+    the same calls, plain version, library."""
     copies = [x.clone() for _ in range(min(KERNEL_ITERS, 8))]
-    ms = cuda_time(lambda i: wrapper(copies[i % len(copies)].copy_(x),
-                                     codes, **kw), KERNEL_ITERS)
+
+    def call(i):
+        return wrapper(copies[i % len(copies)].copy_(x), codes, **kw)
+
+    ms = cuda_time(call, KERNEL_ITERS)
     copy_ms = cuda_time(lambda i: copies[i % len(copies)].copy_(x),
                         KERNEL_ITERS)
+    device = device_fields(kernel.name, call)
     plain_ms = cuda_time(lambda i: plain(x, codes, **kw), PLAIN_ITERS, 1)
     library_ms = cuda_time(lambda i: lib(x), KERNEL_ITERS)
-    return {"ms": ms - copy_ms, "plain_ms": plain_ms,
+    return {"ms": ms - copy_ms, **device, "plain_ms": plain_ms,
             "library_ms": library_ms}
+
+
+def merge_sweep(device) -> int:
+    """B4 against its plain version at every power-of-two block from 1 to
+    the shared-memory cap, at offsets 0 and ``block``, for every lane count
+    of :data:`MERGE_SWEEP_LANES` and each code and fill: the in-thread,
+    shuffle and shared-memory stages of its network, and the register-only
+    kernel. Returns the largest bit error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import adversarial, lex, merge_kernel
+    rng = np.random.default_rng(4)
+    worst = 0
+    for n in MERGE_SWEEP_LANES:
+        cap = merge_kernel.max_merge_block(n)
+        for code_name, code in (("u32", lex.U32), ("i32", lex.I32),
+                                ("f32", lex.F32)):
+            codes = [code] * n
+            for fill in adversarial.FILLS:
+                err, block = 0, 1
+                while block <= cap:
+                    x = torch.from_numpy(adversarial.lane_bits(
+                        rng, (n, 3, 7 * block), code, fill)).to(device)
+                    xb = x.view(n, -1, block)
+                    x = lib_sort(xb, lex.order_keys(xb, codes)).reshape(
+                        n, 3, -1).contiguous()
+                    for lo in (0, block):
+                        got = merge_kernel.merge_adjacent_lex(
+                            x.clone(), codes, block=block, lo=lo)
+                        want = x.clone()
+                        want[..., lo:lo + 6 * block] = \
+                            merge_kernel.merge_network_plain(
+                                x[..., lo:lo + 6 * block], codes, block)
+                        torch.cuda.synchronize()
+                        err = max(err, bits_err(got, want))
+                    block *= 2
+                print(f"[kernels] merge_adjacent_lex sweep {n} lanes "
+                      f"{code_name} {fill}, blocks 1..{cap}, lo 0 and "
+                      f"block: max_abs_err {err}")
+                if err:
+                    raise AssertionError(f"merge_adjacent_lex sweep {n} "
+                                         f"{code_name} {fill}: kernel and "
+                                         "plain version differ")
+                worst = max(worst, err)
+    return worst
 
 
 def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
@@ -360,6 +479,7 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
                                   block=block)
         check_sorted(k.name, xa, got, ca)
         err = max(err, e)
+    err = max(err, merge_sweep(device))
     a, r, c = xm.shape
     report.add(k, err, shape=list(xm.shape), block=block,
                **time_row_kernel(
@@ -399,6 +519,8 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
     report.add(k, err, shape=list(keys.shape),
                ms=cuda_time(lambda i: distribute_kernel.distribute_rows(keys),
                             KERNEL_ITERS),
+               **device_fields(k.name,
+                               lambda i: distribute_kernel.distribute_rows(keys)),
                plain_ms=cuda_time(
                    lambda i: distribute_kernel.distribute_rows_plain(keys, n),
                    PLAIN_ITERS, 1),
@@ -407,9 +529,9 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
     for name in MAIN_PATH:
         row = report.rows[name]
         print(f"[kernels] {name}: " + ", ".join(
-            f"{key} {row[key]}" for key in ("shape", "ms", "plain_ms",
-                                            "library_ms", "bound_ms",
-                                            "bound_by")))
+            f"{key} {row.get(key)}" for key in (
+                "shape", "ms", "device_ms", "device_ms_by_function",
+                "plain_ms", "library_ms", "bound_ms", "bound_by")))
 
 
 def ext_runs(keys, device, chunk=4096):
@@ -541,6 +663,8 @@ def phase_run_merges(report, device, ds2_keys):
         ext, n_cmp=n_cmp), 3, 1)
     report.add(kk.KERNEL, err, shape=[n_arr, total], runs=k, block=blk,
                ms=cuda_time(lambda i: kk.kway_merge(*ops, blk), KERNEL_ITERS),
+               **device_fields(kk.KERNEL.name,
+                               lambda i: kk.kway_merge(*ops, blk)),
                plain_ms=cuda_time(lambda i: kk.kway_merge_plain(*ops, blk),
                                   PLAIN_ITERS, 1),
                torch_tier_ms=cuda_time(lambda i: kk.merge_runs_kway_take(
@@ -582,6 +706,8 @@ def phase_run_merges(report, device, ds2_keys):
     total = got.shape[1]
     report.add(rk.KERNEL, err, shape=[n_arr, total], block=blk,
                ms=cuda_time(lambda i: rk.runmerge(*ops, blk), KERNEL_ITERS),
+               **device_fields(rk.KERNEL.name,
+                               lambda i: rk.runmerge(*ops, blk)),
                plain_ms=cuda_time(lambda i: rk.runmerge_plain(*ops, blk),
                                   PLAIN_ITERS, 1),
                torch_tier_ms=cuda_time(lambda i: keypack.merge_take_packed(
@@ -594,9 +720,10 @@ def phase_run_merges(report, device, ds2_keys):
     for name in (rk.KERNEL.name, kk.KERNEL.name):
         row = report.rows[name]
         print(f"[kernels] {name}: " + ", ".join(
-            f"{key} {row[key]}" for key in ("shape", "ms", "plain_ms",
-                                            "torch_tier_ms", "engine_ms",
-                                            "bound_ms", "bound_by")))
+            f"{key} {row.get(key)}" for key in ("shape", "ms", "device_ms",
+                                            "plain_ms", "torch_tier_ms",
+                                            "engine_ms", "bound_ms",
+                                            "bound_by")))
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -786,6 +913,36 @@ def partition_adversarial(device):
     ]
 
 
+def partition_sweep(device) -> int:
+    """B7 against its plain version for every splitter count of
+    :data:`SPLITTER_SWEEP` and ``MAX_SPLITTERS``, unsorted with duplicates
+    (and both int32 extremes), on three rows of keys of which a third equal
+    a splitter and a tenth sit at INT32_MIN or INT32_MAX, at ragged column
+    counts that leave a vector tail; the ids must also be the upper bounds
+    over the sorted splitters. Returns the largest error."""
+    import torch
+    from repro_torch.kernels import adversarial, partition_kernel as pk
+    worst = 0
+    for n_spl in SPLITTER_SWEEP + (pk.MAX_SPLITTERS,):
+        for cols in SPLITTER_SWEEP_COLS:
+            x, s = (torch.from_numpy(a).to(device) for a in
+                    adversarial.partition_case(n_spl, cols, seed=5))
+            bid, cnt = pk.partition_rows(x, s)
+            want = pk.partition_rows_plain(x, s)
+            torch.cuda.synchronize()
+            e = max(bits_err(bid, want[0]), bits_err(cnt, want[1]))
+            ref = torch.searchsorted(torch.sort(s).values, x, right=True)
+            print(f"[partition] {pk.KERNEL.name} sweep {n_spl} splitters, "
+                  f"(3, {cols}): max_abs_err {e}")
+            if e or not torch.equal(bid.long(), ref):
+                raise AssertionError(f"partition_rows sweep {n_spl} "
+                                     f"splitters, {cols} columns: kernel, "
+                                     "plain version and the upper bound "
+                                     "differ")
+            worst = max(worst, e)
+    return worst
+
+
 def phase_partition_and_repairs(report, device, ds2_words, big_words):
     """B7 behind ``partition_rows`` and the narrow-lane and packed sorts, on
     the card with the counters read around them; then B7 checked against
@@ -915,6 +1072,8 @@ def phase_partition_and_repairs(report, device, ds2_words, big_words):
         if e:
             raise AssertionError(f"partition_rows {label}: kernel and plain "
                                  "version differ")
+        err = max(err, e)
+    err = max(err, partition_sweep(device))
 
     # times at the million-word shape
     _, x, s = cases[2]
@@ -929,6 +1088,8 @@ def phase_partition_and_repairs(report, device, ds2_words, big_words):
 
     report.add(pk.KERNEL, err, shape=[r, c], splitters=n_spl,
                ms=cuda_time(lambda i: pk.partition_rows(x, s), KERNEL_ITERS),
+               **device_fields(pk.KERNEL.name,
+                               lambda i: pk.partition_rows(x, s)),
                plain_ms=cuda_time(lambda i: pk.partition_rows_plain(x, s),
                                   PLAIN_ITERS, 1),
                library_ms=cuda_time(library, KERNEL_ITERS),
@@ -939,9 +1100,9 @@ def phase_partition_and_repairs(report, device, ds2_words, big_words):
                        r * c * (n_spl.bit_length() + 1)))
     row = report.rows[pk.KERNEL.name]
     print(f"[partition] {pk.KERNEL.name}: " + ", ".join(
-        f"{key} {row[key]}" for key in ("shape", "splitters", "ms",
-                                        "plain_ms", "library_ms", "bound_ms",
-                                        "bound_by")))
+        f"{key} {row.get(key)}" for key in (
+            "shape", "splitters", "ms", "device_ms", "device_ms_by_function",
+            "plain_ms", "library_ms", "bound_ms", "bound_by")))
     print(f"[partition] phase took {time.perf_counter() - t0:.1f} s")
 
 

@@ -3,8 +3,9 @@ each beside its plain PyTorch version in the same module — ``oets_kernel``
 (B1), ``bitonic_kernel`` (B2), ``distribute_kernel`` (B3), ``merge_kernel``
 (B4), ``runmerge_kernel`` (B5), ``kway_kernel`` (B6) and
 ``partition_kernel`` (B7); the shared key plane ``lex``; the rank-key
-packing and merge-path ranks ``keypack``; the public ``ops``; and ``ref``,
-the plain oracles the tests hold the row kernels to. ``_build`` compiles
+packing and merge-path ranks ``keypack``; the public ``ops``; ``ref``,
+the plain oracles the tests hold the row kernels to; and ``adversarial``,
+the inputs the card's tests and ``chip_smoke.py`` sweep B4 and B7 with. ``_build`` compiles
 and binds the kernels on their first CUDA launch and counts their launches
 (``KERNELS``).
 """

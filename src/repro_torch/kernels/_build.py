@@ -137,11 +137,19 @@ class Kernel:
         return fn
 
     def __call__(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream; raise if the launch fails."""
+        """Launch on ``device``'s current stream; raise if the launch fails.
+        The host's time per call is most of a small kernel's, so the device
+        is switched only when it is not the current one, and the stream is
+        read as a raw handle rather than through a ``torch.cuda.Stream``
+        object."""
         fn = self._fn or self._load()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*args, stream)
+        index = device.index
+        current = torch.cuda.current_device()
+        if index is None or index == current:
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed: "
                                f"{self._err(rc).decode()} (error {rc})")

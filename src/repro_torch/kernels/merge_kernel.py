@@ -9,6 +9,10 @@ that start at column ``lo``: a reflected compare-exchange (partner
 steps finish them, the low half left — ``repro.kernels.merge_kernel``'s
 ``_merge_network``, so all three agree bit for bit. The port merges in place
 at an offset where the reference slices and concatenates (``core/blocksort``).
+The kernel runs the near stages of the network in registers (inside a
+thread, or across a group of a warp's lanes by shuffles) and the far ones
+through shared memory, which holds the whole pair window and so sets
+:func:`max_merge_block`.
 """
 
 from __future__ import annotations

@@ -9,7 +9,10 @@ Both take keys ``(R, C)`` and splitters ``(S,)``, signed int32, and return
 is a count, as in the TPU kernel. It does not depend on the splitters'
 order: it equals ``searchsorted(side='right')`` over the splitters sorted
 first, for any list, and over the list itself only when that is sorted.
-Nothing is padded.
+The kernel rests on that: it sorts the splitters once per call and takes
+each id by binary search, while the plain version keeps the TPU kernel's
+count, one compare per splitter, and is the yardstick it is held to bit
+for bit. Nothing is padded.
 """
 
 from __future__ import annotations
@@ -24,11 +27,11 @@ __all__ = ["KERNEL", "MAX_SPLITTERS", "partition_rows",
            "partition_rows_plain"]
 
 KERNEL = Kernel("partition_rows", "partition.cu", "partition_rows",
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3,
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
                 replaces="src/repro/kernels/partition_kernel.py:24")
 
-# a block holds the S splitters and its S + 1 histogram bins in shared
-# memory, 4 bytes each
+# a block holds the S splitters and at least one histogram of S + 1 bins in
+# shared memory, 4 bytes each
 MAX_SPLITTERS = (SMEM_LIMIT // 4 - 1) // 2
 
 
@@ -71,8 +74,12 @@ def partition_rows(x: torch.Tensor, splitters: torch.Tensor):
         raise ValueError(f"partition_rows: no kernel for device {x.device}")
     rows, cols = x.shape
     bid = torch.empty((rows, cols), dtype=torch.int32, device=x.device)
-    counts = torch.zeros((rows, n_spl + 1), dtype=torch.int32,
-                         device=x.device)
-    KERNEL(x.device, x.data_ptr(), splitters.data_ptr(), bid.data_ptr(),
+    # one allocation for the counts, which the kernel's pre-pass zeroes, and
+    # the scratch it sorts the splitters into
+    buf = torch.empty(rows * (n_spl + 1) + n_spl, dtype=torch.int32,
+                      device=x.device)
+    counts = buf[:rows * (n_spl + 1)].view(rows, n_spl + 1)
+    KERNEL(x.device, x.data_ptr(), splitters.data_ptr(),
+           buf.data_ptr() + counts.numel() * 4, bid.data_ptr(),
            counts.data_ptr(), rows, cols, n_spl)
     return bid, counts

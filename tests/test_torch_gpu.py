@@ -13,9 +13,10 @@ import torch
 from repro_torch.core import bucketing, packing
 from repro_torch.data import synthetic_words
 from repro_torch.interop import to_numpy
-from repro_torch.kernels import (bitonic_kernel, distribute_kernel,
-                                 kway_kernel, lex, merge_kernel, oets_kernel,
-                                 ops, partition_kernel, runmerge_kernel)
+from repro_torch.kernels import (adversarial, bitonic_kernel,
+                                 distribute_kernel, kway_kernel, lex,
+                                 merge_kernel, oets_kernel, ops,
+                                 partition_kernel, runmerge_kernel)
 from repro_torch.kernels.keypack import packed_cmp_lanes
 from repro_torch.pipeline import chunked_sort_words
 from repro_torch.pipeline.validate import order_bits_view
@@ -317,3 +318,65 @@ def test_packed_sort_lex_on_the_card_matches_the_cpu(cuda, n):
              torch.from_numpy(rng.integers(-3, 3, n).astype(np.int32)).to(cuda)]
     got = ops.sort_lex(lanes, engine="packed")
     _same_bits(got, ops.sort_lex([l.cpu() for l in lanes], engine="packed"))
+
+
+# --- B4's register and shuffle mapping, B7's sorted-splitter search --------
+
+_MERGE_LANES = (1, 2, 3, 4, 5, 8, 9)
+
+
+def _sort_blocks(x, codes, block):
+    """Each ``block``-wide block of every row of stacked ``x`` sorted in the
+    lex order of its order keys (a chain of stable sorts, on the CPU)."""
+    z = x.reshape(x.shape[0], -1, block)
+    keys = lex.order_keys(z, codes)
+    perm = torch.arange(block).expand(z.shape[1], -1).contiguous()
+    for a in reversed(range(z.shape[0])):
+        _, idx = torch.sort(keys[a].gather(-1, perm), dim=-1, stable=True)
+        perm = perm.gather(-1, idx)
+    return torch.stack([lane.gather(-1, perm) for lane in z]).reshape(x.shape)
+
+
+@pytest.mark.parametrize("fill", adversarial.FILLS)
+@pytest.mark.parametrize("code", [lex.U32, lex.I32, lex.F32])
+@pytest.mark.parametrize("n", _MERGE_LANES)
+def test_merge_kernel_every_block_matches_plain(cuda, n, code, fill):
+    """Every power-of-two block from 1 to the shared-memory cap, at offsets
+    0 and ``block``: the in-thread, shuffle and shared-memory stages."""
+    rng = np.random.default_rng([n, code, len(fill)])
+    codes = [code] * n
+    block = 1
+    while block <= merge_kernel.max_merge_block(n):
+        x = torch.from_numpy(adversarial.lane_bits(
+            rng, (n, 3, 7 * block), code, fill))
+        x = _sort_blocks(x, codes, block)
+        xc = x.to(cuda)
+        for lo in (0, block):
+            before = merge_kernel.KERNEL.launches
+            got = merge_kernel.merge_adjacent_lex(xc.clone(), codes,
+                                                  block=block, lo=lo)
+            assert merge_kernel.KERNEL.launches == before + 1
+            want = x.clone()
+            want[..., lo:lo + 6 * block] = merge_kernel.merge_network_plain(
+                x[..., lo:lo + 6 * block], codes, block)
+            assert torch.equal(got.cpu(), want), (block, lo)
+        block *= 2
+
+
+_SPLITTER_COUNTS = (0, 1, 2, 31, 32, 33, 127, 128, 1000,
+                    partition_kernel.MAX_SPLITTERS)
+
+
+@pytest.mark.parametrize("cols", [1, 3, 130, 16_385])
+@pytest.mark.parametrize("n_spl", _SPLITTER_COUNTS)
+def test_partition_kernel_sweep_matches_plain(cuda, n_spl, cols):
+    keys, spl = (torch.from_numpy(a).to(cuda)
+                 for a in adversarial.partition_case(n_spl, cols, seed=11))
+    before = partition_kernel.KERNEL.launches
+    got = partition_kernel.partition_rows(keys, spl)
+    assert partition_kernel.KERNEL.launches == before + 1
+    want = partition_kernel.partition_rows_plain(keys, spl)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    ref = torch.searchsorted(torch.sort(spl).values, keys, right=True)
+    assert torch.equal(got[0].long(), ref)

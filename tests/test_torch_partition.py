@@ -104,6 +104,26 @@ def test_unsorted_and_duplicated_splitters(kind):
         bid, (keys[..., None] >= spl).sum(-1).astype(np.int32))
 
 
+@pytest.mark.parametrize("perm", range(3))
+@pytest.mark.parametrize("n_spl", [1, 9, 200])
+def test_ids_do_not_depend_on_splitter_order(n_spl, perm):
+    """The invariant the kernel's sorted-splitter search rests on: every
+    permutation of an unsorted, duplicated splitter list gives the same ids
+    and counts in the reference and the port, and those are the upper
+    bounds over the splitters sorted (``searchsorted(side='right')``)."""
+    rng = _rng("order", n_spl)
+    spl = rng.integers(-50, 50, n_spl).astype(np.int32)
+    spl[rng.integers(0, n_spl, n_spl // 3)] = spl[0]      # duplicates
+    keys = rng.integers(-60, 60, (3, 130)).astype(np.int32)
+    keys[:, ::4] = spl[rng.integers(0, n_spl, keys[:, ::4].shape)]
+    spl = _rng("order", n_spl, perm).permutation(spl)
+    bid, cnt = _check(keys, spl)
+    want = np.searchsorted(np.sort(spl), keys, side="right")
+    np.testing.assert_array_equal(bid, want)
+    np.testing.assert_array_equal(
+        cnt, np.stack([np.bincount(r, minlength=n_spl + 1) for r in want]))
+
+
 def test_uint32_keys_wrap_to_int32():
     """uint32 keys at or above 2^31 wrap, as ``astype(jnp.int32)`` casts:
     3,000,000,000 lands below splitter 2."""
