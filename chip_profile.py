@@ -34,12 +34,19 @@ checkout's B7 the same way:
 
     python3 chip_profile.py partition
 
+With the argument ``kernels`` it prints, the same way, only the device time
+of B2 at DS2's local blocks and at the run tier's chunk blocks, of B3 on
+DS2's words and of B4 at one DS2 round (``kernel_cost``):
+
+    python3 chip_profile.py kernels
+
 It exits non-zero without a card. Nothing of ``jax`` or ``repro`` is
 imported.
 """
 
 from __future__ import annotations
 
+import itertools
 import statistics
 import sys
 import time
@@ -131,9 +138,11 @@ def launch_cost(device):
     of four lanes, a few microseconds of device time, so the host sets the
     pace: through the wrapper, through ``Kernel.__call__``, the C entry
     point alone through ctypes, and the same ctypes call inside a device
-    context with the stream read from a ``torch.cuda.Stream`` object."""
+    context with the stream read from a ``torch.cuda.Stream`` object; then
+    of the distribute kernel (B3) at DS2's 230,000 words through its
+    wrapper and through its C entry point alone."""
     import torch
-    from repro_torch.kernels import lex, merge_kernel
+    from repro_torch.kernels import distribute_kernel, lex, merge_kernel
     x = torch.zeros((4, 1, 8192), dtype=torch.int32, device=device)
     codes = [lex.U32] * 4
     kernel = merge_kernel.KERNEL
@@ -145,6 +154,16 @@ def launch_cost(device):
         with torch.cuda.device(device):
             kernel._fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
+    # B3 at DS2's word count: the wrapper (one allocation, three views),
+    # and its C entry point alone (the scratch's memset and the launch)
+    words = torch.zeros((230_000, 4), dtype=torch.int32, device=device)
+    at, scratch = distribute_kernel.buffer_layout(230_000, 17)
+    buf = torch.empty(at + scratch, dtype=torch.int32, device=device)
+    b = buf.data_ptr()
+    b3_args = (words.data_ptr(), 4, 230_000, 230_000, 17, b, b + 4 * 230_000,
+               b + 8 * 230_000, b + 4 * at, 4 * scratch)
+    distribute_kernel.distribute_rows(words)
+
     for name, fn in (
             ("merge_adjacent_lex", lambda: merge_kernel.merge_adjacent_lex(
                 x, codes, block=4096)),
@@ -152,7 +171,11 @@ def launch_cost(device):
             ("the C entry point through ctypes", lambda: kernel._fn(
                 *args, stream)),
             ("ctypes in a device context, stream from a Stream object",
-             through_stream_object)):
+             through_stream_object),
+            ("distribute_rows (230000, 4)",
+             lambda: distribute_kernel.distribute_rows(words)),
+            ("distribute_rows' C entry point through ctypes",
+             lambda: distribute_kernel.KERNEL._fn(*b3_args, stream))):
         print(f"[launch] {name}: {host_us(fn):.2f} us per call (host clock, "
               "2000 calls)")
 
@@ -222,6 +245,110 @@ def partition_cost(device, calls=20):
                           for name, ms in sorted(by_name.items())))
 
 
+def device_ms_by_name(fn, calls=20, tries=2):
+    """Device milliseconds per call of ``fn()`` by event name: every device
+    event of ``calls`` calls in a ``torch.profiler`` window after a warm
+    call (the kernels, and the memsets and fills of their wrappers). A
+    window in which the profiler saw no device event (it happens now and
+    then to a window in a process that has traced others) is traced again,
+    up to ``tries`` windows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    by_name = {}
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / calls / 1e3)
+        if by_name:
+            break
+    return by_name
+
+
+def kernel_cost(device):
+    """Device time per call of B2 at DS2's local blocks (4, 204, 4096), at
+    the run tier's chunk blocks (4, 136, 512) and at the bitonic tier's
+    3,000-word chunk (4, 17, 1024), B3 on DS2's packed words (230,000, 4)
+    and on the run tier's first chunk of them (4096, 4), and B4 at one DS2
+    round (4, 17, 49,152), block 4096 (then B3's host time per call), each
+    through its wrapper on fresh copies of the same input, by device event
+    name (:func:`device_ms_by_name`). The wrappers' signatures are the same
+    in every version of the port, so the script, copied into an older
+    checkout, measures that checkout's kernels the same way."""
+    from chip_smoke import stacked_buckets
+    from repro_torch import to_device
+    from repro_torch.configs import DS2
+    from repro_torch.core import packing
+    from repro_torch.core.blocksort import default_block_size
+    from repro_torch.data import synthetic_words
+    from repro_torch.kernels import (bitonic_kernel, distribute_kernel, lex,
+                                     merge_kernel)
+    u4 = [lex.U32] * 4
+    keys = packing.pack_words(synthetic_words(DS2.n_words, seed=0))
+    sizes = {}
+
+    def blocks(cap):
+        sizes["block"] = default_block_size(cap, n_arrays=4)
+        return -(-cap // sizes["block"]) * sizes["block"]
+
+    x = stacked_buckets(keys, device, blocks)
+    block = sizes["block"]
+    local = x.view(4, -1, block)
+    run = stacked_buckets(keys[:4096], device, lambda cap: 4096).view(
+        4, -1, default_block_size(4096, n_arrays=4))
+    merged = bitonic_kernel.bitonic_rows_lex(local.clone(), u4).view(
+        4, x.shape[1], -1)
+    npairs = merged.shape[2] // (2 * block)
+    merged = merged[:, :, :npairs * 2 * block].contiguous()
+    words = lex.as_bits(to_device(keys, device)).contiguous()
+    chunk = words[:4096]
+    tier = stacked_buckets(packing.pack_words(synthetic_words(3000, seed=0)),
+                           device, lambda cap: 1 << (cap - 1).bit_length())
+
+    def on_copies(x, call):
+        """``call`` on one of four copies of ``x``, refreshed each time:
+        the sorts and the merge work in place."""
+        copies, turn = [x.clone() for _ in range(4)], itertools.count()
+        return lambda: call(copies[next(turn) % 4].copy_(x))
+
+    cases = (
+        ("B2 bitonic_rows_lex", local, on_copies(
+            local, lambda t: bitonic_kernel.bitonic_rows_lex(t, u4))),
+        ("B2 bitonic_rows_lex", run, on_copies(
+            run, lambda t: bitonic_kernel.bitonic_rows_lex(t, u4))),
+        ("B2 bitonic_rows_lex", tier, on_copies(
+            tier, lambda t: bitonic_kernel.bitonic_rows_lex(t, u4))),
+        ("B3 distribute_rows", words,
+         lambda: distribute_kernel.distribute_rows(words)),
+        ("B3 distribute_rows", chunk,
+         lambda: distribute_kernel.distribute_rows(chunk)),
+        ("B4 merge_adjacent_lex", merged, on_copies(
+            merged, lambda t: merge_kernel.merge_adjacent_lex(
+                t, u4, block=block))),
+    )
+    for label, t, fn in cases:
+        by_name = device_ms_by_name(fn)
+        kernel = {n: ms for n, ms in by_name.items()
+                  if "copy" not in n.lower() and "elementwise" not in n}
+        print(f"[kernels] {label} {tuple(t.shape)}: device "
+              f"{sum(kernel.values()):.5f} ms per call without the copies "
+              "of the input; " + ", ".join(
+                  f"{name[:60]} {ms:.5f}"
+                  for name, ms in sorted(by_name.items())))
+    # B3's `ms` is the host's: its wrapper's host time per call
+    print(f"[kernels] B3 distribute_rows {tuple(words.shape)}: host "
+          f"{host_us(lambda: distribute_kernel.distribute_rows(words)):.2f} "
+          "us per call (host clock, 2000 calls)")
+
+
 def profile_run_tier(words, device):
     from repro_torch.pipeline import chunked_sort_words
     for engine in ("auto", "tournament"):
@@ -266,6 +393,10 @@ def main() -> int:
     device = torch.device("cuda")
     if sys.argv[1:] == ["partition"]:
         partition_cost(device)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:] == ["kernels"]:
+        kernel_cost(device)
         print(nvidia_smi())
         return 0
     launch_cost(device)

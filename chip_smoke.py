@@ -18,11 +18,17 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      on the card and its output to be in order (for the row sorts a chain
      of stable ``torch.sort`` passes is the independent check; for the run
      merges the torch tier and the total-order contract), and time kernel,
-     plain version and library call or torch tier. The merge kernel (B4)
-     also runs at every power-of-two block from 1 to its shared-memory cap,
-     at offsets 0 and ``block``, for 1, 2, 3, 4, 5, 8 and 9 lanes of each
-     code and fill. The merge-path kernel (B5) runs at the last tournament round
-     of DS2 chunked at 4096 words, the k-way kernel (B6) at DS2's 57 runs;
+     plain version and library call or torch tier. The bitonic kernel (B2)
+     also runs at every power-of-two column count from 1 to its
+     shared-memory cap, and the merge kernel (B4) at every power-of-two
+     block, at offsets 0 and ``block``, both for 1, 2, 3, 4, 5, 8 and 9
+     lanes of each code and fill; B2 is timed at the run tier's chunk
+     blocks (4, 136, 512) beside DS2's local blocks. The distribute kernel
+     (B3) runs at 0 to 1,048,577 words of 1 to 8 lanes, with ``n_valid``
+     0, ``n - 777`` and ``n``, on words of spread, single and per-warp
+     alternating lengths. The merge-path kernel (B5) runs at the last
+     tournament round of DS2 chunked at 4096 words, the k-way kernel (B6)
+     at DS2's 57 runs;
   3. main path — sort a 500-word chunk (OETS tier), a 3,000-word chunk
      (bitonic tier) and the paper's DS1 and DS2 (blocksort: bitonic + merge)
      through ``bucketed_sort_words`` and ``sorted_packed``; then the run
@@ -90,15 +96,17 @@ NARROW_N = 230_000
 # names them
 DEVICE_NAMES = {
     "oets_rows_lex": ("oets_rows_kernel",),
-    "bitonic_rows_lex": ("bitonic_rows_kernel",),
-    "distribute_rows": ("distribute_count_kernel", "distribute_scan_kernel",
-                        "distribute_offset_kernel"),
+    "bitonic_rows_lex": ("bitonic_window_kernel", "bitonic_regs_kernel"),
+    # the kernel and the zeroing of its look-back scratch, in one call
+    "distribute_rows": ("distribute_kernel", "Memset"),
     "merge_adjacent_lex": ("merge_window_kernel", "merge_regs_kernel"),
     "merge_runs_lex": ("runmerge_kernel",),
     "merge_runs_kway": ("kway_kernel",),
     "partition_rows": ("partition_prep_kernel", "partition_kernel"),
 }
-MERGE_SWEEP_LANES = (1, 2, 3, 4, 5, 8, 9)
+SWEEP_LANES = (1, 2, 3, 4, 5, 8, 9)
+DISTRIBUTE_SWEEP_N = (0, 1, 31, 32, 33, 1023, 1024, 1025, 4096, 65_537,
+                      230_000, 1_048_577)
 SPLITTER_SWEEP = (0, 1, 2, 31, 32, 33, 127, 128, 1000)   # and MAX_SPLITTERS
 SPLITTER_SWEEP_COLS = (1, 3, 130, 16_385)
 
@@ -120,33 +128,36 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time(kernel_name: str, fn, iters: int = KERNEL_ITERS):
+def device_time(kernel_name: str, fn, iters: int = KERNEL_ITERS,
+                tries: int = 2):
     """Device milliseconds per call of ``fn(i)`` spent in the CUDA functions
     of ``kernel_name`` (:data:`DEVICE_NAMES`), where the number comes from,
     and its split by function: ``torch.profiler``'s CUDA time by kernel
-    name over ``iters`` calls after a warm-up ('profiler'), or, where the
-    profiler shows no device time, CUDA events around the replay of a CUDA
-    graph of ``iters`` calls, which takes the host's launch cost out of the
-    window ('graph events', no split)."""
+    name over ``iters`` calls after a warm-up ('profiler'; a window that
+    shows no device time, which happens now and then, is traced again, up
+    to ``tries`` windows), or, where the profiler shows none, CUDA events
+    around the replay of a CUDA graph of ``iters`` calls, which takes the
+    host's launch cost out of the window ('graph events', no split)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = DEVICE_NAMES[kernel_name]
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        name = next((n for n in names if n in ev.key), None)
-        if name is not None:
-            t = getattr(ev, "device_time_total", None)
-            t = t if t is not None else ev.cuda_time_total
-            split[name] = split.get(name, 0.0) + t / iters / 1e3
-    if sum(split.values()) > 0:
-        return sum(split.values()), "profiler", split
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            name = next((n for n in names if n in ev.key), None)
+            if name is not None:
+                t = getattr(ev, "device_time_total", None)
+                t = t if t is not None else ev.cuda_time_total
+                split[name] = split.get(name, 0.0) + t / iters / 1e3
+        if sum(split.values()) > 0:
+            return sum(split.values()), "profiler", split
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(iters):
@@ -343,7 +354,7 @@ def time_row_kernel(kernel, wrapper, plain, lib, x, codes, **kw):
 def merge_sweep(device) -> int:
     """B4 against its plain version at every power-of-two block from 1 to
     the shared-memory cap, at offsets 0 and ``block``, for every lane count
-    of :data:`MERGE_SWEEP_LANES` and each code and fill: the in-thread,
+    of :data:`SWEEP_LANES` and each code and fill: the in-thread,
     shuffle and shared-memory stages of its network, and the register-only
     kernel. Returns the largest bit error."""
     import numpy as np
@@ -351,7 +362,7 @@ def merge_sweep(device) -> int:
     from repro_torch.kernels import adversarial, lex, merge_kernel
     rng = np.random.default_rng(4)
     worst = 0
-    for n in MERGE_SWEEP_LANES:
+    for n in SWEEP_LANES:
         cap = merge_kernel.max_merge_block(n)
         for code_name, code in (("u32", lex.U32), ("i32", lex.I32),
                                 ("f32", lex.F32)):
@@ -382,6 +393,85 @@ def merge_sweep(device) -> int:
                                          f"{code_name} {fill}: kernel and "
                                          "plain version differ")
                 worst = max(worst, err)
+    return worst
+
+
+def bitonic_sweep(device) -> int:
+    """B2 against its plain version at every power-of-two column count from
+    1 to the shared-memory cap, for every lane count of :data:`SWEEP_LANES`
+    and each code and fill: the register-only kernel (up to 128 columns),
+    then the in-thread, shuffle and shared-memory stages of the window
+    kernel. Returns the largest bit error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import adversarial, bitonic_kernel, lex
+    from repro_torch.kernels._build import SMEM_LIMIT
+    rng = np.random.default_rng(6)
+    worst = 0
+    for n in SWEEP_LANES:
+        cap = 1 << ((SMEM_LIMIT // (4 * n)).bit_length() - 1)
+        for code_name, code in (("u32", lex.U32), ("i32", lex.I32),
+                                ("f32", lex.F32)):
+            codes = [code] * n
+            for fill in adversarial.FILLS:
+                err, cols = 0, 1
+                while cols <= cap:
+                    x = torch.from_numpy(adversarial.lane_bits(
+                        rng, (n, 3, cols), code, fill)).to(device)
+                    got = bitonic_kernel.bitonic_rows_lex(x.clone(), codes)
+                    want = bitonic_kernel.bitonic_rows_lex_plain(x, codes)
+                    torch.cuda.synchronize()
+                    err = max(err, bits_err(got, want))
+                    cols *= 2
+                print(f"[kernels] bitonic_rows_lex sweep {n} lanes "
+                      f"{code_name} {fill}, columns 1..{cap}: max_abs_err "
+                      f"{err}")
+                if err:
+                    raise AssertionError(f"bitonic_rows_lex sweep {n} "
+                                         f"{code_name} {fill}: kernel and "
+                                         "plain version differ")
+                worst = max(worst, err)
+    return worst
+
+
+def distribute_sweep(device) -> int:
+    """B3 against its plain version at every word count of
+    :data:`DISTRIBUTE_SWEEP_N`, for 1 to 8 lanes and each fill of
+    ``adversarial.WORD_FILLS``, with ``n_valid`` 0, ``n - 777`` (where
+    positive) and ``n``; at 4 and 8 lanes also words that are not 16-byte
+    aligned (the scalar loads). Returns the largest error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import adversarial, distribute_kernel as dk
+    rng = np.random.default_rng(7)
+    worst = 0
+    top = max(DISTRIBUTE_SWEEP_N)
+    for lanes in range(1, 9):
+        for fill in adversarial.WORD_FILLS:
+            words = torch.from_numpy(adversarial.packed_words(
+                rng, top, lanes, fill)).to(device)
+            err = 0
+            for n in DISTRIBUTE_SWEEP_N:
+                cases = [words[:n]]
+                if lanes % 4 == 0 and n == 1025:
+                    shifted = torch.empty(n * lanes + 1, dtype=torch.int32,
+                                          device=device)
+                    cases.append(shifted[1:].view(n, lanes).copy_(words[:n]))
+                for keys in cases:
+                    for n_valid in sorted({0, max(n - 777, 0), n}):
+                        got = dk.distribute_rows(keys, n_valid)
+                        want = dk.distribute_rows_plain(keys, n_valid)
+                        torch.cuda.synchronize()
+                        err = max(err, max(bits_err(g, w)
+                                           for g, w in zip(got, want)))
+            print(f"[kernels] distribute_rows sweep {lanes} lanes {fill}, "
+                  f"n {DISTRIBUTE_SWEEP_N[0]}..{top}, n_valid 0, n - 777 and "
+                  f"n: max_abs_err {err}")
+            if err:
+                raise AssertionError(f"distribute_rows sweep {lanes} lanes "
+                                     f"{fill}: kernel and plain version "
+                                     "differ")
+            worst = max(worst, err)
     return worst
 
 
@@ -453,14 +543,38 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
                                   plain_bitonic, xa, ca, kind)
         check_sorted(k.name, xa, got, ca)
         err = max(err, e)
-    a, r, c = xl.shape
-    m = c.bit_length() - 1
+    # the run tier's chunk shape: a 4096-word chunk bucketed at capacity
+    # 4096, blocksort's local sort at its block
+    run_block = default_block_size(4096, n_arrays=4)
+    xr = stacked_buckets(ds2_keys[:4096], device, lambda cap: 4096).view(
+        4, -1, run_block)
+    e, got = check_row_kernel(k, bitonic_kernel.bitonic_rows_lex,
+                              plain_bitonic, xr, U4, "run-tier chunk blocks")
+    check_sorted(k.name, xr, got, U4)
+    err = max(err, e, bitonic_sweep(device))
+
+    def bitonic_bound(t):
+        a, r, c = t.shape
+        m = c.bit_length() - 1
+        return bound(2 * a * r * c * 4, r * (c // 2) * m * (m + 1) // 2 * a)
+
+    def lib(t):
+        return lib_sort(t, t ^ (-1 << 31))
+
+    run_tier = time_row_kernel(k, bitonic_kernel.bitonic_rows_lex,
+                               plain_bitonic, lib, xr, U4)
+    run_tier.update(bitonic_bound(xr))
+    print(f"[kernels] {k.name} run-tier chunk {tuple(xr.shape)}: " + ", ".join(
+        f"{key} {run_tier.get(key)}" for key in (
+            "ms", "device_ms", "device_ms_source", "device_ms_by_function",
+            "plain_ms", "library_ms", "bound_ms")))
     report.add(k, err, shape=list(xl.shape),
                **time_row_kernel(k, bitonic_kernel.bitonic_rows_lex,
-                                 plain_bitonic,
-                                 lambda t: lib_sort(t, t ^ (-1 << 31)), xl,
-                                 U4),
-               **bound(2 * a * r * c * 4, r * (c // 2) * m * (m + 1) // 2 * a))
+                                 plain_bitonic, lib, xl, U4),
+               **bitonic_bound(xl), run_tier_shape=list(xr.shape),
+               run_tier={key: run_tier[key] for key in (
+                   "ms", "device_ms", "device_ms_source", "plain_ms",
+                   "library_ms", "bound_ms")})
 
     # B4 at DS2: the first (even) merge round over the locally sorted blocks
     k = merge_kernel.KERNEL
@@ -515,17 +629,31 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
             raise AssertionError(f"{k.name} {label}: kernel and plain "
                                  "version differ")
         err = max(err, e)
-    n = keys.shape[0]
-    report.add(k, err, shape=list(keys.shape),
-               ms=cuda_time(lambda i: distribute_kernel.distribute_rows(keys),
-                            KERNEL_ITERS),
-               **device_fields(k.name,
-                               lambda i: distribute_kernel.distribute_rows(keys)),
-               plain_ms=cuda_time(
-                   lambda i: distribute_kernel.distribute_rows_plain(keys, n),
-                   PLAIN_ITERS, 1),
-               library_ms=None,
-               **bound(n * 4 * 4 + 2 * n * 4 + 17 * 4, n * 4))
+    err = max(err, distribute_sweep(device))
+
+    def distribute_times(words):
+        n = words.shape[0]
+        return dict(
+            ms=cuda_time(lambda i: distribute_kernel.distribute_rows(words),
+                         KERNEL_ITERS),
+            **device_fields(k.name, lambda i: distribute_kernel.distribute_rows(
+                words)),
+            plain_ms=cuda_time(lambda i: distribute_kernel.distribute_rows_plain(
+                words, n), PLAIN_ITERS, 1),
+            library_ms=None,
+            **bound(n * 4 * 4 + 2 * n * 4 + 17 * 4, n * 4))
+
+    # the run tier's chunk: 4096 words, four tiles
+    chunk = distribute_times(keys[:4096])
+    print(f"[kernels] {k.name} run-tier chunk (4096, 4): " + ", ".join(
+        f"{key} {chunk.get(key)}" for key in (
+            "ms", "device_ms", "device_ms_source", "device_ms_by_function",
+            "plain_ms", "bound_ms")))
+    report.add(k, err, shape=list(keys.shape), **distribute_times(keys),
+               run_tier_shape=[4096, 4],
+               run_tier={key: chunk[key] for key in (
+                   "ms", "device_ms", "device_ms_source", "plain_ms",
+                   "bound_ms")})
     for name in MAIN_PATH:
         row = report.rows[name]
         print(f"[kernels] {name}: " + ", ".join(

@@ -56,9 +56,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
+    """The library of ``source``, named by a hash of it, of every header in
+    ``csrc/`` (a source may include any of them) and of the flags."""
     h = hashlib.sha256()
-    for f in (source, "common.cuh"):
-        h.update((CSRC / f).read_bytes())
+    for f in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

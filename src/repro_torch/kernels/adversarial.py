@@ -3,6 +3,7 @@ by the card's tests (``tests/test_torch_gpu.py``) and ``chip_smoke.py``:
 lane bits that collide with a code's padding value, repeat a few values or
 carry float NaN payloads and ±0.0 (B4's block sweep), and unsorted,
 duplicated splitter lists with keys at and beside them (B7's splitter
+sweep), and packed words whose byte lengths pile up or alternate (B3's
 sweep). numpy arrays, made from the seed; nothing here touches a device.
 """
 
@@ -12,9 +13,11 @@ import numpy as np
 
 from . import lex
 
-__all__ = ["FILLS", "lane_bits", "partition_case"]
+__all__ = ["FILLS", "WORD_FILLS", "lane_bits", "partition_case",
+           "packed_words"]
 
 FILLS = ("sentinel", "dup_heavy", "nan")
+WORD_FILLS = ("nul_ff", "one_length", "warp_alternate")
 _INFO32 = np.iinfo(np.int32)
 
 
@@ -71,3 +74,33 @@ def partition_case(n_spl: int, cols: int, seed: int):
     keys[ext < 0.05] = _INFO32.min
     keys[ext > 0.95] = _INFO32.max
     return keys, rng.permutation(spl)
+
+
+def packed_words(rng: np.random.Generator, n: int, lanes: int,
+                 fill: str) -> np.ndarray:
+    """``(n, lanes)`` int32 bits of packed words (big-endian bytes, as
+    ``core/packing.py`` packs them): 'nul_ff' (random bytes, a third of
+    them NUL and a fifth 0xFF, so lengths spread and interior NULs count),
+    'one_length' (every word of one length: one bucket takes all) or
+    'warp_alternate' (the length switches between 1 and ``4 * lanes``
+    every 32 words, from one warp to the next)."""
+    width = 4 * lanes
+    b = rng.integers(1, 256, (n, width), dtype=np.uint8)
+    col = np.arange(width)[None, :]
+    if fill == "nul_ff":
+        b[col >= rng.integers(0, width + 1, n)[:, None]] = 0
+        pick = rng.random((n, width))
+        b[pick < 0.33] = 0
+        b[pick > 0.8] = 0xFF
+    else:
+        if fill == "one_length":
+            length = np.full(n, int(rng.integers(1, width + 1)))
+        elif fill == "warp_alternate":
+            length = np.where(np.arange(n) // 32 % 2, width, 1)
+        else:
+            raise ValueError(f"packed_words: unknown fill {fill!r}")
+        b[col >= length[:, None]] = 0
+        # NULs before the last byte leave the length as it is
+        b[(rng.random((n, width)) < 0.2) & (col < length[:, None] - 1)] = 0
+    return np.ascontiguousarray(b).view(">u4").astype(np.uint32).view(
+        np.int32).reshape(n, lanes)

@@ -6,7 +6,9 @@ Both sort each row of a stacked ``(A, R, C)`` int32 lane tensor (see
 compare: the network of ``repro.kernels.bitonic_kernel`` (XOR partner from
 two rolls and a bit select, direction from ``col & 2^stage``), so all three
 agree bit for bit. The bitonic tier of ``ops.choose_plan`` and blocksort's
-local sort.
+local sort. The kernel runs the stages with near partners in registers
+(inside a thread, or across a group of a warp's lanes by shuffles) and the
+far ones through shared memory, which holds the whole row (see its source).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 // Shared pieces of the port's kernels: the lane codes, the canonical order
 // bits of kernels/lex.py, the lexicographic compare, the load/store of one
 // window of a stacked (arrays, rows, cols) lane tensor, and the two networks
-// that run on a window in shared memory — the bitonic sort (B2, and B6's
-// block window) and the merge of two sorted halves (B4, and B5's window).
+// that run on a window in shared memory one stage per barrier — the bitonic
+// sort (B6's block window) and the merge of two sorted halves (B5's window).
+// B2 and B4 run the same networks from registers (network.cuh).
 //
 // Every kernel reads each lane's raw 32 bits and its code, compares the
 // order bits computed in registers, and swaps the raw bits: an output is a

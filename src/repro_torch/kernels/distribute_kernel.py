@@ -9,7 +9,8 @@ gives: the length is the position of the last non-zero byte (interior NUL
 bytes count), ranks are the exact arrival-order ranks, and rows at or past
 ``n_valid`` are padding (bucket ``num_buckets``, rank 0, counted nowhere).
 The reference carries running counts along a sequential TPU grid; the CUDA
-kernel takes a cross-block prefix instead (see its source).
+kernel takes the cross-tile prefix in its one launch by a decoupled
+look-back (see its source).
 """
 
 from __future__ import annotations
@@ -20,15 +21,17 @@ import torch
 
 from ._build import Kernel
 
-__all__ = ["KERNEL", "distribute_rows", "distribute_rows_plain", "TILE"]
+__all__ = ["KERNEL", "distribute_rows", "distribute_rows_plain", "TILE",
+           "buffer_layout"]
 
 KERNEL = Kernel("distribute_rows", "distribute.cu", "distribute_rows",
                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p],
+                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong],
                 replaces="src/repro/kernels/distribute_kernel.py:44")
 
-# words per CUDA block of the count and offset passes
+# the fewest words of a CUDA block's tile (DIST_THREADS in
+# csrc/distribute.cu), which sets the most tiles the scratch must hold
 TILE = 1024
 _MAX_LANES = 8
 
@@ -76,12 +79,19 @@ def distribute_rows(keys: torch.Tensor, n_valid: int | None = None):
     if keys.device.type != "cuda":
         raise ValueError(f"distribute_rows: no kernel for device {keys.device}")
     num_buckets = 4 * lanes + 1
-    dest = torch.empty(n, dtype=torch.int32, device=keys.device)
-    rank = torch.empty(n, dtype=torch.int32, device=keys.device)
-    counts = torch.empty(num_buckets, dtype=torch.int32, device=keys.device)
-    scratch = torch.empty(max(1, -(-n // TILE)) * num_buckets,
-                          dtype=torch.int32, device=keys.device)
-    KERNEL(keys.device, keys.data_ptr(), lanes, n, n_valid, num_buckets, TILE,
-           dest.data_ptr(), rank.data_ptr(), counts.data_ptr(),
-           scratch.data_ptr())
-    return dest, rank, counts
+    at, scratch_words = buffer_layout(n, num_buckets)
+    buf = torch.empty(at + scratch_words, dtype=torch.int32,
+                      device=keys.device)
+    base = buf.data_ptr()
+    KERNEL(keys.device, keys.data_ptr(), lanes, n, n_valid, num_buckets,
+           base, base + 4 * n, base + 8 * n, base + 4 * at, 4 * scratch_words)
+    return buf[:n], buf[n:2 * n], buf[2 * n:2 * n + num_buckets]
+
+
+def buffer_layout(n: int, num_buckets: int) -> tuple[int, int]:
+    """The kernel's outputs and scratch share one int32 buffer: ``dest``,
+    ``rank`` and ``counts``, then, from an even word, the scratch — its
+    ticket and a 64-bit status word per tile and bucket. Returns the word
+    where the scratch starts and its length in words."""
+    return ((2 * n + num_buckets + 1) // 2 * 2,
+            2 * (1 + -(-n // TILE) * num_buckets))

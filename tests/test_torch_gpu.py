@@ -17,6 +17,7 @@ from repro_torch.kernels import (adversarial, bitonic_kernel,
                                  distribute_kernel, kway_kernel, lex,
                                  merge_kernel, oets_kernel, ops,
                                  partition_kernel, runmerge_kernel)
+from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.keypack import packed_cmp_lanes
 from repro_torch.pipeline import chunked_sort_words
 from repro_torch.pipeline.validate import order_bits_view
@@ -320,7 +321,7 @@ def test_packed_sort_lex_on_the_card_matches_the_cpu(cuda, n):
     _same_bits(got, ops.sort_lex([l.cpu() for l in lanes], engine="packed"))
 
 
-# --- B4's register and shuffle mapping, B7's sorted-splitter search --------
+# --- the register networks (B2, B4), B3's look-back, B7's search -----------
 
 _MERGE_LANES = (1, 2, 3, 4, 5, 8, 9)
 
@@ -361,6 +362,58 @@ def test_merge_kernel_every_block_matches_plain(cuda, n, code, fill):
                 x[..., lo:lo + 6 * block], codes, block)
             assert torch.equal(got.cpu(), want), (block, lo)
         block *= 2
+
+
+@pytest.mark.parametrize("fill", adversarial.FILLS)
+@pytest.mark.parametrize("code", [lex.U32, lex.I32, lex.F32])
+@pytest.mark.parametrize("n", _MERGE_LANES)
+def test_bitonic_kernel_every_width_matches_plain(cuda, n, code, fill):
+    """Every power-of-two column count from 1 to the shared-memory cap: the
+    register-only kernel up to 128 columns, then the window kernel's
+    in-thread, shuffle and shared-memory stages."""
+    rng = np.random.default_rng([n, code, len(fill), 2])
+    codes = [code] * n
+    cols = 1
+    while n * cols * 4 <= SMEM_LIMIT:
+        x = torch.from_numpy(adversarial.lane_bits(rng, (n, 3, cols), code,
+                                                   fill))
+        before = bitonic_kernel.KERNEL.launches
+        got = bitonic_kernel.bitonic_rows_lex(x.to(cuda), codes)
+        assert bitonic_kernel.KERNEL.launches == before + 1
+        assert torch.equal(got.cpu(),
+                           bitonic_kernel.bitonic_rows_lex_plain(x, codes)), \
+            cols
+        cols *= 2
+
+
+_DISTRIBUTE_N = (0, 1, 31, 32, 33, 1023, 1024, 1025, 4096, 65_537, 230_000,
+                 1_048_577)
+
+
+@pytest.mark.parametrize("fill", adversarial.WORD_FILLS)
+@pytest.mark.parametrize("lanes", range(1, 9))
+def test_distribute_kernel_sweep_matches_plain(cuda, lanes, fill):
+    """Word counts around a warp, a tile, the look-back's 32-tile step and
+    the switch to four words a thread (past 64 tiles), up to a million;
+    ``n_valid`` 0, ``n - 777`` and ``n``; at 4 and 8 lanes also words off
+    16-byte alignment (the scalar loads)."""
+    rng = np.random.default_rng([lanes, len(fill)])
+    words = torch.from_numpy(adversarial.packed_words(
+        rng, max(_DISTRIBUTE_N), lanes, fill)).to(cuda)
+    for n in _DISTRIBUTE_N:
+        cases = [words[:n]]
+        if lanes % 4 == 0:
+            shifted = torch.empty(n * lanes + 1, dtype=torch.int32,
+                                  device=cuda)
+            cases.append(shifted[1:].view(n, lanes).copy_(words[:n]))
+        for keys in cases:
+            for n_valid in sorted({0, max(n - 777, 0), n}):
+                before = distribute_kernel.KERNEL.launches
+                got = distribute_kernel.distribute_rows(keys, n_valid)
+                assert distribute_kernel.KERNEL.launches == before + 1
+                want = distribute_kernel.distribute_rows_plain(keys, n_valid)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (n, n_valid)
 
 
 _SPLITTER_COUNTS = (0, 1, 2, 31, 32, 33, 127, 128, 1000,

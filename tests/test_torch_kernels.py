@@ -5,6 +5,8 @@ strict compare — so the bits agree exactly, NaN and ±0.0 ties included.
 The CUDA kernels themselves are held against these plain versions on the
 card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,12 +31,19 @@ _LANE_SETS = {
     "nan_f32_i32_payload": [("nan", np.float32), ("dup_heavy", np.int32),
                             ("nan", np.float32), ("random", np.int32)],
 }
+# the widths B2's kernel splits on: one and nine lanes, integer and float
+_BITONIC_LANE_SETS = {
+    **_LANE_SETS,
+    "one_i32": [("sentinel", np.int32)],
+    "nine_mixed": [("nan", np.float32), ("sentinel", np.uint32),
+                   ("dup_heavy", np.int32)] * 3,
+}
 
 
 def _lanes(name: str, rows: int, cols: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     return [fill_elements(gen, rng, rows * cols, dt).reshape(rows, cols)
-            for gen, dt in _LANE_SETS[name]]
+            for gen, dt in _BITONIC_LANE_SETS[name]]
 
 
 def _stack(lanes):
@@ -58,9 +67,18 @@ def test_oets_plain_matches_pallas(lane_set):
     _assert_bits(got, want)
 
 
-@pytest.mark.parametrize("lane_set", sorted(_LANE_SETS))
-def test_bitonic_plain_matches_pallas(lane_set):
-    lanes = _lanes(lane_set, 8, 128, seed=1)
+@pytest.mark.parametrize("lane_set,cols", [
+    *[pytest.param(name, 128, id=name) for name in sorted(_LANE_SETS)],
+    *[pytest.param(name, cols, id=f"{name}-{cols}")
+      for name, cols in (("one_i32", 128), ("nine_mixed", 128),
+                         ("one_i32", 256), ("words_u32x4", 256),
+                         ("one_i32", 1024))]])
+def test_bitonic_plain_matches_pallas(lane_set, cols):
+    """Rows of 128 (B2's register-only kernel), 256 and 1024 columns (its
+    shared-memory stages), at one, four and nine lanes; the reference's
+    interpreted network costs seconds per lane and width here, so the wide
+    and the nine-lane rows are not crossed."""
+    lanes = _lanes(lane_set, 8, cols, seed=1)
     x, codes = _stack(lanes)
     got = bitonic_kernel.bitonic_rows_lex(x.clone(), codes)
     want = bitonic_rows_lex_pallas(*[jnp.asarray(a) for a in lanes],
@@ -104,6 +122,11 @@ def _distribute_words(kind: str):
     if kind == "random":
         words = [w for _ in range(4) for w in make_words("random", rng)][:300]
         return pack_words(words, width=8)
+    if kind == "one_length":
+        # every word in one bucket, interior NUL bytes included
+        words = [bytes(rng.integers(0, 256, 6, dtype=np.uint8)) + b"z"
+                 for _ in range(300)]
+        return pack_words(words, width=8)
     # 0xFF bytes (lanes equal to the uint32 sentinel), interior NUL bytes,
     # empty words, at 4 lanes
     words = make_words("sentinel", rng, max_len=16) * 3
@@ -111,8 +134,12 @@ def _distribute_words(kind: str):
     return pack_words(words[:300], width=16)
 
 
-@pytest.mark.parametrize("kind", ["random", "sentinel_nul"])
-def test_distribute_plain_matches_pallas(kind):
+@pytest.mark.parametrize("kind,n_valid", [
+    pytest.param("random", 300, id="random"),
+    pytest.param("sentinel_nul", 300, id="sentinel_nul"),
+    pytest.param("one_length", 300, id="one_length"),
+    pytest.param("random", 0, id="random-none_valid")])
+def test_distribute_plain_matches_pallas(kind, n_valid):
     """300 words: three 128-column grid steps in the reference, so its
     running counts carry across blocks; the padded tail gets the discard
     id."""
@@ -124,9 +151,10 @@ def test_distribute_plain_matches_pallas(kind):
     padded[:n] = keys
     nb = 4 * lanes + 1
     dest, rank, counts = distribute_kernel.distribute_rows(
-        torch.from_numpy(padded.view(np.int32)), n_valid=n)
-    rd, rr, rc = distribute_rows_pallas(jnp.asarray(padded.T), n_valid=n,
-                                        num_buckets=nb, interpret=True)
+        torch.from_numpy(padded.view(np.int32)), n_valid=n_valid)
+    rd, rr, rc = distribute_rows_pallas(jnp.asarray(padded.T),
+                                        n_valid=n_valid, num_buckets=nb,
+                                        interpret=True)
     np.testing.assert_array_equal(dest.numpy(), np.asarray(rd)[0])
     np.testing.assert_array_equal(rank.numpy(), np.asarray(rr)[0])
     np.testing.assert_array_equal(counts.numpy(), np.asarray(rc)[0, :nb])
@@ -169,3 +197,20 @@ def test_merge_block_cap_from_shared_memory():
     assert merge_kernel.max_merge_block(5) == 4096
     assert merge_kernel.max_merge_block(1) == 16384
     assert merge_kernel.max_merge_block(9) == 2048
+
+
+def test_library_name_follows_every_header(tmp_path, monkeypatch):
+    """A library is named by a hash of its source and of every header under
+    ``csrc/``: an edit to a header other than ``common.cuh`` (here the
+    networks' ``network.cuh``) names a new library, so a stale build is
+    never reused; an unedited copy names the same one."""
+    from repro_torch.kernels import _build
+    here = {s: _build._lib_path(s) for s in _build.SOURCES}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert {s: _build._lib_path(s) for s in _build.SOURCES} == here
+    header = csrc / "network.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {s: _build._lib_path(s) for s in _build.SOURCES}
+    assert all(edited[s] != here[s] for s in _build.SOURCES)
