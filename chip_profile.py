@@ -35,10 +35,26 @@ checkout's B7 the same way:
     python3 chip_profile.py partition
 
 With the argument ``kernels`` it prints, the same way, only the device time
-of B2 at DS2's local blocks and at the run tier's chunk blocks, of B3 on
-DS2's words and of B4 at one DS2 round (``kernel_cost``):
+of B1 at the OETS tier's shape, of B2 at DS2's local blocks and at the run
+tier's chunk blocks, of B3 on DS2's words, of B4 at one DS2 round and of
+B5's split and merge at DS2's last tournament round, then the host time of
+B3, of B5's split and of B5's front end (``kernel_cost``):
 
     python3 chip_profile.py kernels
+
+With the argument ``chunked`` it times only the million-word chunked sort
+of that phase (``chunked_cost``), whose single timed call per run spreads
+wider than the changes of a kernel PR:
+
+    python3 chip_profile.py chunked
+
+With the argument ``e2e`` it runs only the end-to-end phase of
+``chip_smoke.py`` (phase 3: the main path on the 500- and 3,000-word
+chunks, DS1 and DS2, then the run tier's chunked sorts), whose lines give
+the end-to-end times; the script, copied into an older checkout, runs that
+checkout's phase the same way:
+
+    python3 chip_profile.py e2e
 
 It exits non-zero without a card. Nothing of ``jax`` or ``repro`` is
 imported.
@@ -274,23 +290,28 @@ def device_ms_by_name(fn, calls=20, tries=2):
 
 
 def kernel_cost(device):
-    """Device time per call of B2 at DS2's local blocks (4, 204, 4096), at
-    the run tier's chunk blocks (4, 136, 512) and at the bitonic tier's
-    3,000-word chunk (4, 17, 1024), B3 on DS2's packed words (230,000, 4)
-    and on the run tier's first chunk of them (4096, 4), and B4 at one DS2
-    round (4, 17, 49,152), block 4096 (then B3's host time per call), each
-    through its wrapper on fresh copies of the same input, by device event
-    name (:func:`device_ms_by_name`). The wrappers' signatures are the same
-    in every version of the port, so the script, copied into an older
+    """Device time per call of B1 at the 500-word chunk's buckets (4, 17,
+    128), of B2 at DS2's local blocks (4, 204, 4096), at the run tier's
+    chunk blocks (4, 136, 512) and at the bitonic tier's 3,000-word chunk
+    (4, 17, 1024), B3 on DS2's packed words (230,000, 4) and on the run
+    tier's first chunk of them (4096, 4), B4 at one DS2 round (4, 17,
+    49,152), block 4096, and B5's split and merge at DS2's last tournament
+    round (10 arrays of 230,000, 5 compare lanes, block 256), each through its wrapper (the sorts on fresh copies of the same input),
+    by device event name (:func:`device_ms_by_name`); then the host time per
+    call of B3, of B5's split and of B5's front end
+    (``merge_runs_lex_kernel``). The wrappers' signatures are the same in
+    every version of the port, so the script, copied into an older
     checkout, measures that checkout's kernels the same way."""
+    import torch
     from chip_smoke import stacked_buckets
     from repro_torch import to_device
     from repro_torch.configs import DS2
     from repro_torch.core import packing
     from repro_torch.core.blocksort import default_block_size
     from repro_torch.data import synthetic_words
-    from repro_torch.kernels import (bitonic_kernel, distribute_kernel, lex,
-                                     merge_kernel)
+    from repro_torch.kernels import (bitonic_kernel, distribute_kernel,
+                                     kway_kernel, lex, merge_kernel,
+                                     oets_kernel, runmerge_kernel)
     u4 = [lex.U32] * 4
     keys = packing.pack_words(synthetic_words(DS2.n_words, seed=0))
     sizes = {}
@@ -312,6 +333,24 @@ def kernel_cost(device):
     chunk = words[:4096]
     tier = stacked_buckets(packing.pack_words(synthetic_words(3000, seed=0)),
                            device, lambda cap: 1 << (cap - 1).bit_length())
+    oets = stacked_buckets(packing.pack_words(synthetic_words(500, seed=0)),
+                           device, lambda cap: 128)
+    # B5: the merge of runs [0, 32) against runs [32, 57) of DS2 chunked at
+    # 4096, each side merged first
+    ext, n_cmp = ext_runs(keys, device)
+    half = 1 << ((len(ext) - 1).bit_length() - 1)
+    run_a = kway_kernel.merge_runs_kway_take(ext[:half], n_cmp=n_cmp)
+    run_b = kway_kernel.merge_runs_kway_take(ext[half:], n_cmp=n_cmp)
+    blk = runmerge_kernel.DEFAULT_MERGE_BLOCK
+    operands = runmerge_kernel.merge_operands(run_a, run_b, n_cmp, block=blk)
+
+    def split():
+        return runmerge_kernel.merge_path_starts(run_a[:n_cmp],
+                                                 run_b[:n_cmp], blk)
+
+    def front_end():
+        return runmerge_kernel.merge_runs_lex_kernel(run_a, run_b,
+                                                     n_cmp=n_cmp)
 
     def on_copies(x, call):
         """``call`` on one of four copies of ``x``, refreshed each time:
@@ -320,6 +359,8 @@ def kernel_cost(device):
         return lambda: call(copies[next(turn) % 4].copy_(x))
 
     cases = (
+        ("B1 oets_rows_lex", oets, on_copies(
+            oets, lambda t: oets_kernel.oets_rows_lex(t, u4))),
         ("B2 bitonic_rows_lex", local, on_copies(
             local, lambda t: bitonic_kernel.bitonic_rows_lex(t, u4))),
         ("B2 bitonic_rows_lex", run, on_copies(
@@ -333,6 +374,9 @@ def kernel_cost(device):
         ("B4 merge_adjacent_lex", merged, on_copies(
             merged, lambda t: merge_kernel.merge_adjacent_lex(
                 t, u4, block=block))),
+        ("B5 split merge_path_starts", operands[0], split),
+        ("B5 merge runmerge", operands[2],
+         lambda: runmerge_kernel.runmerge(*operands, blk)),
     )
     for label, t, fn in cases:
         by_name = device_ms_by_name(fn)
@@ -340,13 +384,48 @@ def kernel_cost(device):
                   if "copy" not in n.lower() and "elementwise" not in n}
         print(f"[kernels] {label} {tuple(t.shape)}: device "
               f"{sum(kernel.values()):.5f} ms per call without the copies "
-              "of the input; " + ", ".join(
+              f"of the input, {sum(by_name.values()):.5f} in all; "
+              + ", ".join(
                   f"{name[:60]} {ms:.5f}"
                   for name, ms in sorted(by_name.items())))
     # B3's `ms` is the host's: its wrapper's host time per call
     print(f"[kernels] B3 distribute_rows {tuple(words.shape)}: host "
           f"{host_us(lambda: distribute_kernel.distribute_rows(words)):.2f} "
           "us per call (host clock, 2000 calls)")
+    # B5's split and front end, where the host's time per call is the cost
+    for label, fn in (("B5 split merge_path_starts", split),
+                      ("B5 front end merge_runs_lex_kernel", front_end)):
+        print(f"[kernels] {label}: host {host_us(fn, calls=200, warmup=5):.2f}"
+              " us per call (host clock, 200 calls); "
+              f"{median_ms(lambda: (fn(), torch.cuda.synchronize())):.4f} ms "
+              "per call ended by a synchronize (median of 5)")
+
+
+def chunked_cost(device, calls=5):
+    """Host-clock milliseconds of ``calls`` calls of ``chunked_sort_packed``
+    on the million-word corpus at chunk 16,384 with ``validate='full'``
+    (``chip_smoke.py``'s run-tier case), each ended by a synchronize, after
+    a warm call; its signature is the same in every version of the port."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.data import synthetic_words
+    from repro_torch.pipeline import chunked_sort_packed
+    keys = packing.pack_words(synthetic_words(1_048_576, seed=0))
+
+    def call():
+        chunked_sort_packed(keys, chunk_size=16384, validate="full",
+                            device=device)
+        torch.cuda.synchronize()
+
+    call()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print("[chunked] 1M words chunked, k-way, validate=full: "
+          + ", ".join(f"{t:.1f}" for t in times) + f" ms; median "
+          f"{statistics.median(times):.1f} ms over {calls} calls")
 
 
 def profile_run_tier(words, device):
@@ -397,6 +476,21 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["kernels"]:
         kernel_cost(device)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:] == ["chunked"]:
+        chunked_cost(device)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:] == ["e2e"]:
+        from chip_smoke import Report, phase_main_path, phase_run_tier
+        words = {name: synthetic_words(n, seed=0) for name, n in (
+            ("chunk-500", 500), ("chunk-3000", 3000),
+            ("DS1", DS1.n_words), ("DS2", DS2.n_words))}
+        report = Report()
+        phase_main_path(report, device, list(words.items()))
+        phase_run_tier(report, device, words["DS2"],
+                       synthetic_words(1_048_576, seed=0))
         print(nvidia_smi())
         return 0
     launch_cost(device)

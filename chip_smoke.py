@@ -26,8 +26,13 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      blocks (4, 136, 512) beside DS2's local blocks. The distribute kernel
      (B3) runs at 0 to 1,048,577 words of 1 to 8 lanes, with ``n_valid``
      0, ``n - 777`` and ``n``, on words of spread, single and per-warp
-     alternating lengths. The merge-path kernel (B5) runs at the last
-     tournament round of DS2 chunked at 4096 words, the k-way kernel (B6)
+     alternating lengths. The OETS kernel (B1) also runs at 1, 17, 33 and
+     133 rows of 100, 128 (one warp a row) and 256 columns (a block a row)
+     for the same lane counts, codes and fills, each output also the stable
+     sort. The merge-path kernel (B5) and its split run at the last
+     tournament round of DS2 chunked at 4096 words, and at every
+     compare-lane count from 1 to 15 for each fill at the co-rank edges of
+     ``adversarial.MERGE_EDGES``, blocks 128 and 256; the k-way kernel (B6)
      at DS2's 57 runs;
   3. main path — sort a 500-word chunk (OETS tier), a 3,000-word chunk
      (bitonic tier) and the paper's DS1 and DS2 (blocksort: bitonic + merge)
@@ -95,16 +100,23 @@ NARROW_N = 230_000
 # the CUDA functions behind each kernel's C entry point, as the profiler
 # names them
 DEVICE_NAMES = {
-    "oets_rows_lex": ("oets_rows_kernel",),
+    # one warp a row up to 128 columns, a block a row beyond
+    "oets_rows_lex": ("oets_warp_kernel", "oets_rows_kernel"),
     "bitonic_rows_lex": ("bitonic_window_kernel", "bitonic_regs_kernel"),
     # the kernel and the zeroing of its look-back scratch, in one call
     "distribute_rows": ("distribute_kernel", "Memset"),
     "merge_adjacent_lex": ("merge_window_kernel", "merge_regs_kernel"),
     "merge_runs_lex": ("runmerge_kernel",),
+    "merge_path_starts": ("runmerge_starts_kernel",),
     "merge_runs_kway": ("kway_kernel",),
     "partition_rows": ("partition_prep_kernel", "partition_kernel"),
 }
 SWEEP_LANES = (1, 2, 3, 4, 5, 8, 9)
+# B1's sweep: 133 rows leave the warp kernel's last block three warps
+# without a row; 100 and 128 columns run one warp a row, 256 a block a row
+OETS_SWEEP_ROWS = (1, 17, 33, 133)
+OETS_SWEEP_COLS = (100, 128, 256)
+MERGE_SWEEP_BLOCKS = (128, 256)
 DISTRIBUTE_SWEEP_N = (0, 1, 31, 32, 33, 1023, 1024, 1025, 4096, 65_537,
                       230_000, 1_048_577)
 SPLITTER_SWEEP = (0, 1, 2, 31, 32, 33, 127, 128, 1000)   # and MAX_SPLITTERS
@@ -475,6 +487,89 @@ def distribute_sweep(device) -> int:
     return worst
 
 
+def oets_sweep(device) -> int:
+    """B1 against its plain version for every lane count of
+    :data:`SWEEP_LANES`, each code and fill, at every row count of
+    :data:`OETS_SWEEP_ROWS` and column count of :data:`OETS_SWEEP_COLS`:
+    the warp kernel and the shared-memory kernel. Each output must also be
+    the stable sort (a chain of stable ``torch.sort`` passes), which
+    adjacent swaps on a strict compare give. Returns the largest bit
+    error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import adversarial, lex, oets_kernel
+    rng = np.random.default_rng(8)
+    worst = 0
+    for n in SWEEP_LANES:
+        for code_name, code in (("u32", lex.U32), ("i32", lex.I32),
+                                ("f32", lex.F32)):
+            codes = [code] * n
+            for fill in adversarial.FILLS:
+                err = 0
+                for rows in OETS_SWEEP_ROWS:
+                    for cols in OETS_SWEEP_COLS:
+                        x = torch.from_numpy(adversarial.lane_bits(
+                            rng, (n, rows, cols), code, fill)).to(device)
+                        got = oets_kernel.oets_rows_lex(x.clone(), codes)
+                        want = oets_kernel.oets_rows_lex_plain(x, codes)
+                        stable = lib_sort(x, lex.order_keys(x, codes))
+                        torch.cuda.synchronize()
+                        err = max(err, bits_err(got, want))
+                        if not torch.equal(got, stable):
+                            raise AssertionError(
+                                f"oets_rows_lex sweep {n} {code_name} {fill} "
+                                f"({rows}, {cols}): not the stable sort")
+                print(f"[kernels] oets_rows_lex sweep {n} lanes {code_name} "
+                      f"{fill}, rows {OETS_SWEEP_ROWS} x columns "
+                      f"{OETS_SWEEP_COLS}: max_abs_err {err}")
+                if err:
+                    raise AssertionError(f"oets_rows_lex sweep {n} "
+                                         f"{code_name} {fill}: kernel and "
+                                         "plain version differ")
+                worst = max(worst, err)
+    return worst
+
+
+def runmerge_sweep(device) -> int:
+    """B5's split and merge against their plain versions for every
+    compare-lane count from 1 to ``MAX_CMP_LANES`` and each fill, at every
+    co-rank edge of ``adversarial.MERGE_EDGES`` (empty runs, runs of one
+    element, equal runs, one run wholly below the other, totals on and off
+    a block multiple) and blocks :data:`MERGE_SWEEP_BLOCKS`: the starts
+    bit for bit, the merged lanes bit for bit. Returns the largest bit
+    error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import adversarial, runmerge_kernel as rk
+    rng = np.random.default_rng(9)
+    worst = 0
+    for n_cmp in range(1, rk.MAX_CMP_LANES + 1):
+        for fill in adversarial.FILLS:
+            err = 0
+            for edge in adversarial.MERGE_EDGES:
+                a, b, codes = adversarial.merge_case(rng, n_cmp, fill, edge)
+                da, db = (torch.from_numpy(np.stack(r)).to(device)
+                          for r in (a, b))
+                sa, sb = da[:n_cmp], db[:n_cmp]
+                for block in MERGE_SWEEP_BLOCKS:
+                    starts = rk.merge_path_starts(sa, sb, block, codes)
+                    want = rk.merge_path_starts_plain(sa, sb, codes, block)
+                    got = rk.runmerge(sa, sb, da, db, starts, codes, block)
+                    ref = rk.runmerge_plain(sa, sb, da, db, want, codes,
+                                            block)
+                    torch.cuda.synchronize()
+                    err = max(err, bits_err(starts, want), bits_err(got, ref))
+            print(f"[kernels] merge_runs_lex sweep {n_cmp} compare lanes "
+                  f"{fill}, edges {'/'.join(adversarial.MERGE_EDGES)}, "
+                  f"blocks {MERGE_SWEEP_BLOCKS}: split and merge "
+                  f"max_abs_err {err}")
+            if err:
+                raise AssertionError(f"merge_runs_lex sweep {n_cmp} {fill}: "
+                                     "kernels and plain versions differ")
+            worst = max(worst, err)
+    return worst
+
+
 def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
     import numpy as np
     import torch
@@ -509,6 +604,7 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
                                   xa, ca, kind)
         check_sorted(k.name, xa, got, ca)
         err = max(err, e)
+    err = max(err, oets_sweep(device))
     a, r, c = x.shape
     report.add(k, err, shape=list(x.shape),
                **time_row_kernel(k, oets_kernel.oets_rows_lex, plain_oets,
@@ -831,6 +927,38 @@ def phase_run_merges(report, device, ds2_keys):
         if not all(x is y for x, y in zip(out, runs[1])):
             raise AssertionError("merge_runs_lex: an empty run changed the "
                                  "other")
+    err = max(err, runmerge_sweep(device))
+
+    # the split at the same merge: the kernel's starts (merge_operands ran
+    # it) against the plain torch split's, then both timed
+    sk = rk.SPLIT_KERNEL
+    sa, sb, codes = ops[0], ops[1], ops[5]
+    split_err = bits_err(ops[4], rk.merge_path_starts_plain(sa, sb, codes,
+                                                            blk))
+    print(f"[kernels] {sk.name} DS2 last round, {len(codes)} compare lanes: "
+          f"max_abs_err {split_err}")
+    if split_err:
+        raise AssertionError(f"{sk.name}: kernel and plain version differ")
+    nbounds = ops[4].shape[1]
+    steps = min(sa.shape[1], sb.shape[1]).bit_length()
+
+    def split(i):
+        return rk.merge_path_starts(sa, sb, blk, codes)
+
+    def torch_split(i):
+        return rk.merge_path_starts_plain(sa, sb, codes, blk)
+
+    report.add(sk, split_err, shape=[len(codes), sa.shape[1], sb.shape[1]],
+               block=blk, ms=cuda_time(split, KERNEL_ITERS),
+               **device_fields(sk.name, split),
+               plain_ms=cuda_time(torch_split, PLAIN_ITERS, 1),
+               # the yardstick: the torch split (the plain version) on the
+               # card, the split the port ran before this kernel
+               library_ms=cuda_time(torch_split, KERNEL_ITERS),
+               # the least: a boundary's search reads one lane of a and of
+               # b a step, then writes its two starts
+               **bound(nbounds * (steps * 2 + 2) * 4, nbounds * steps))
+
     total = got.shape[1]
     report.add(rk.KERNEL, err, shape=[n_arr, total], block=blk,
                ms=cuda_time(lambda i: rk.runmerge(*ops, blk), KERNEL_ITERS),
@@ -845,13 +973,13 @@ def phase_run_merges(report, device, ds2_keys):
                library_ms=None,
                **bound(2 * n_arr * total * 4 + ops[4].numel() * 4,
                        total * n_cmp))
-    for name in (rk.KERNEL.name, kk.KERNEL.name):
+    for name in (rk.KERNEL.name, rk.SPLIT_KERNEL.name, kk.KERNEL.name):
         row = report.rows[name]
         print(f"[kernels] {name}: " + ", ".join(
             f"{key} {row.get(key)}" for key in ("shape", "ms", "device_ms",
-                                            "plain_ms", "torch_tier_ms",
-                                            "engine_ms", "bound_ms",
-                                            "bound_by")))
+                                            "plain_ms", "library_ms",
+                                            "torch_tier_ms", "engine_ms",
+                                            "bound_ms", "bound_by")))
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -945,20 +1073,20 @@ def phase_run_tier(report, device, ds2_words, big_words):
     big_keys = packing.pack_words(big_words)
     big_oracle = packing.pack_words(shortlex(big_words), width=16)
     cases = (
-        ("DS2 chunked, k-way", ds2_words, 4096, "auto", "merge_runs_kway",
+        ("DS2 chunked, k-way", ds2_words, 4096, "auto", ("merge_runs_kway",),
          lambda: chunked_sort_words(ds2_words, chunk_size=4096,
                                     merge_engine="auto", device=device)),
         ("DS2 chunked, tournament", ds2_words, 4096, "tournament",
-         "merge_runs_lex",
+         ("merge_runs_lex", "merge_path_starts"),
          lambda: chunked_sort_words(ds2_words, chunk_size=4096,
                                     merge_engine="tournament",
                                     device=device)),
         ("1M words chunked, k-way, validate=full", big_words, 16384, "auto",
-         "merge_runs_kway",
+         ("merge_runs_kway",),
          lambda: chunked_sort_packed(big_keys, chunk_size=16384,
                                      validate="full", device=device)),
     )
-    for name, words, chunk, engine, merge_kernel, run in cases:
+    for name, words, chunk, engine, merge_kernels, run in cases:
         torch.cuda.reset_peak_memory_stats()
         out, counts = launch_counts(run)
         peak = torch.cuda.max_memory_allocated()
@@ -969,7 +1097,7 @@ def phase_run_tier(report, device, ds2_words, big_words):
         if not ok:
             raise AssertionError(f"{name}: not the shortlex order")
         for kname in ("distribute_rows", "bitonic_rows_lex",
-                      "merge_adjacent_lex", merge_kernel):
+                      "merge_adjacent_lex") + merge_kernels:
             if counts[kname] == 0:
                 raise AssertionError(f"{name}: {kname} never launched")
         for kname, c in counts.items():

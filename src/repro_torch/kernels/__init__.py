@@ -5,7 +5,8 @@ each beside its plain PyTorch version in the same module — ``oets_kernel``
 ``partition_kernel`` (B7); the shared key plane ``lex``; the rank-key
 packing and merge-path ranks ``keypack``; the public ``ops``; ``ref``,
 the plain oracles the tests hold the row kernels to; and ``adversarial``,
-the inputs the card's tests and ``chip_smoke.py`` sweep B4 and B7 with. ``_build`` compiles
+the inputs the card's tests and ``chip_smoke.py`` sweep B1, B3, B4, B5 and
+B7 with. ``_build`` compiles
 and binds the kernels on their first CUDA launch and counts their launches
 (``KERNELS``).
 """

@@ -4,7 +4,9 @@ lane bits that collide with a code's padding value, repeat a few values or
 carry float NaN payloads and ±0.0 (B4's block sweep), and unsorted,
 duplicated splitter lists with keys at and beside them (B7's splitter
 sweep), and packed words whose byte lengths pile up or alternate (B3's
-sweep). numpy arrays, made from the seed; nothing here touches a device.
+sweep), and pairs of sorted runs at the co-rank edges of a two-run merge
+(B5's sweep). numpy arrays, made from the seed; nothing here touches a
+device.
 """
 
 from __future__ import annotations
@@ -13,11 +15,24 @@ import numpy as np
 
 from . import lex
 
-__all__ = ["FILLS", "WORD_FILLS", "lane_bits", "partition_case",
-           "packed_words"]
+__all__ = ["FILLS", "WORD_FILLS", "MERGE_EDGES", "lane_bits",
+           "partition_case", "packed_words", "fill_codes", "merge_case"]
 
 FILLS = ("sentinel", "dup_heavy", "nan")
 WORD_FILLS = ("nul_ff", "one_length", "warp_alternate")
+# pairs of runs a two-run merge meets: sizes (na, nb), and how b's values
+# relate to a's
+MERGE_EDGES = {
+    "random": (1000, 777),        # na + nb not a multiple of any block
+    "a_empty": (0, 300),
+    "b_empty": (300, 0),
+    "a_single": (1, 500),
+    "b_single": (500, 1),
+    "equal": (400, 400),          # b holds a's tuples: every tie goes to a
+    "a_below": (600, 400),        # every a at or below every b
+    "a_above": (400, 600),        # every b at or below every a
+    "whole_blocks": (300, 212),   # 512: the last boundary lands on the end
+}
 _INFO32 = np.iinfo(np.int32)
 
 
@@ -104,3 +119,64 @@ def packed_words(rng: np.random.Generator, n: int, lanes: int,
         b[(rng.random((n, width)) < 0.2) & (col < length[:, None] - 1)] = 0
     return np.ascontiguousarray(b).view(">u4").astype(np.uint32).view(
         np.int32).reshape(n, lanes)
+
+
+def fill_codes(fill: str, n: int) -> list:
+    """The lane codes a fill is swept with: 'sentinel' alternates uint32
+    and int32 lanes (each padding value, and INT32_MIN), 'dup_heavy' takes
+    uint32 lanes, 'nan' float32 lanes."""
+    if fill == "sentinel":
+        return [(lex.U32, lex.I32)[a % 2] for a in range(n)]
+    return [lex.F32 if fill == "nan" else lex.U32] * n
+
+
+def _order_keys(bits: np.ndarray, code: int) -> np.ndarray:
+    """The canonical order bits of int32 ``bits`` of ``code`` as uint32
+    (``lex.to_order_bits``): float NaNs above +inf and equal but for the
+    all-ones padding NaN, which is highest; -0.0 == +0.0."""
+    b = bits.view(np.uint32)
+    if code == lex.U32:
+        return b
+    if code == lex.I32:
+        return b ^ np.uint32(0x80000000)
+    mag = b & np.uint32(0x7FFFFFFF)
+    b = np.where(mag == 0, np.uint32(0), b)
+    key = np.where(b >> 31 == 1, ~b, b | np.uint32(0x80000000))
+    nan = np.where(b == 0xFFFFFFFF, np.uint32(0xFFFFFFFF),
+                   np.uint32(0xFFFFFFFE))
+    return np.where(mag > 0x7F800000, nan, key).astype(np.uint32)
+
+
+def merge_case(rng: np.random.Generator, n_cmp: int, fill: str,
+               edge: str):
+    """``(a, b, codes)``: two runs of the co-rank ``edge``
+    (:data:`MERGE_EDGES`), each a list of int32 bit arrays — ``n_cmp``
+    compare lanes of ``fill`` (codes :func:`fill_codes`), then two payload
+    lanes, the run (0 or 1) and the element's index in it — sorted by the
+    compare lanes alone (the payload in run order among ties)."""
+    codes = fill_codes(fill, n_cmp)
+    na, nb = MERGE_EDGES[edge]
+    pool = np.stack([lane_bits(rng, (na + nb,), c, fill) for c in codes])
+    keys = np.stack([_order_keys(p, c) for p, c in zip(pool, codes)])
+
+    def in_order(idx):
+        return idx[np.lexsort(keys[::-1, idx])] if len(idx) else idx
+
+    if edge == "equal":
+        ia = in_order(np.arange(na))
+        ib = ia
+    elif edge in ("a_below", "a_above"):
+        low = in_order(np.arange(na + nb))
+        lo_n = na if edge == "a_below" else nb
+        ia, ib = low[:lo_n], low[lo_n:]
+        if edge == "a_above":
+            ia, ib = ib, ia
+    else:
+        ia, ib = in_order(np.arange(na)), in_order(np.arange(na, na + nb))
+
+    def run(idx, which):
+        return [np.ascontiguousarray(l[idx]) for l in pool] + [
+            np.full(len(idx), which, np.int32),
+            np.arange(len(idx), dtype=np.int32)]
+
+    return run(ia, 0), run(ib, 1), codes

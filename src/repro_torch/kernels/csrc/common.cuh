@@ -1,9 +1,9 @@
 // Shared pieces of the port's kernels: the lane codes, the canonical order
 // bits of kernels/lex.py, the lexicographic compare, the load/store of one
-// window of a stacked (arrays, rows, cols) lane tensor, and the two networks
-// that run on a window in shared memory one stage per barrier — the bitonic
-// sort (B6's block window) and the merge of two sorted halves (B5's window).
-// B2 and B4 run the same networks from registers (network.cuh).
+// window of a stacked (arrays, rows, cols) lane tensor (B1's wide rows, B6),
+// and the bitonic sort of a window in shared memory one stage per barrier
+// (B6's block window). B2 and B4 run their networks from registers
+// (network.cuh).
 //
 // Every kernel reads each lane's raw 32 bits and its code, compares the
 // order bits computed in registers, and swaps the raw bits: an output is a
@@ -101,24 +101,6 @@ __device__ __forceinline__ void sort_window(const Window& w, int cols) {
       }
       __syncthreads();
     }
-  }
-}
-
-// Merge in place a 2 x `block` window whose halves are each sorted: a
-// reflected stage (i against 2B-1-i) turns asc ++ asc into two bitonic
-// halves, then log2(B) XOR stages finish them, the low half left — the
-// pairs of repro/kernels/merge_kernel.py's _merge_network. Every thread of
-// the block takes part; ends with a barrier.
-__device__ __forceinline__ void merge_halves(const Window& w, int block) {
-  int width = 2 * block;
-  for (int k = threadIdx.x; k < block; k += blockDim.x) w.cmpx(k, width - 1 - k);
-  __syncthreads();
-  for (int j = block >> 1; j > 0; j >>= 1) {
-    for (int k = threadIdx.x; k < block; k += blockDim.x) {
-      int i = 2 * k - (k & (j - 1));  // the k-th index with bit j unset
-      w.cmpx(i, i + j);
-    }
-    __syncthreads();
   }
 }
 

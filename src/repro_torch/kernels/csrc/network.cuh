@@ -1,6 +1,9 @@
 // Shared pieces of the two compare-exchange networks that run from
 // registers: the bitonic sort (B2, bitonic.cu) and the merge of adjacent
-// sorted blocks (B4, merge.cu).
+// sorted blocks (B4, merge.cu). The odd-even transposition sort (B1,
+// oets.cu) takes their element layout and compare-exchanges (with a
+// predicate for pairs outside the row), the run merge (B5, runmerge.cu)
+// their lexicographic compare.
 //
 // Both specialise on the lane count (1-9) and on whether any lane is float
 // (templates), so the lane loops unroll. Integer lanes travel as their order
@@ -216,14 +219,16 @@ __device__ __forceinline__ void keys_of(uint32_t (&v)[S::NW][E], int e,
   for (int a = 0; a < S::NA; ++a) k[a] = v[S::K + a][e];
 }
 
-// compare-exchange of slots e and f (e the lower element) of one thread
+// compare-exchange of slots e and f (e the lower element) of one thread;
+// `on` false leaves them (a pair outside the row), with no branch
 template <class S, int E>
 __device__ __forceinline__ void cmpx_slots(uint32_t (&v)[S::NW][E], int e,
-                                           int f, bool asc = true) {
+                                           int f, bool asc = true,
+                                           bool on = true) {
   uint32_t x[S::NA], y[S::NA];
   keys_of<S, E>(v, e, x);
   keys_of<S, E>(v, f, y);
-  const bool s = takes<S>(x, y, asc);
+  const bool s = takes<S>(x, y, asc) & on;
 #pragma unroll
   for (int w = 0; w < S::NW; ++w) {
     uint32_t t = v[w][e];
@@ -234,16 +239,16 @@ __device__ __forceinline__ void cmpx_slots(uint32_t (&v)[S::NW][E], int e,
 
 // slot e against the partner lane's element p: the element that keeps the
 // smaller (`keep_min`) takes p where p is smaller, the other where it is
-// larger; ties never move
+// larger; ties never move; `on` false leaves it, with no branch
 template <class S, int E>
 __device__ __forceinline__ void exchange(uint32_t (&v)[S::NW][E], int e,
                                          const uint32_t (&p)[S::NW],
-                                         bool keep_min) {
+                                         bool keep_min, bool on = true) {
   uint32_t x[S::NA], y[S::NA];
   keys_of<S, E>(v, e, x);
 #pragma unroll
   for (int a = 0; a < S::NA; ++a) y[a] = p[S::K + a];
-  const bool take = takes<S>(x, y, keep_min);
+  const bool take = takes<S>(x, y, keep_min) & on;
 #pragma unroll
   for (int w = 0; w < S::NW; ++w) v[w][e] = take ? p[w] : v[w][e];
 }

@@ -1,92 +1,348 @@
-// B5: merge-path combine of two sorted runs, one output block per CTA.
+// B5: merge-path combine of two sorted runs, one output block per CTA, and
+// the diagonal split that cuts the runs into those blocks.
 //
 // Replaces repro/kernels/runmerge_kernel.py:54 (_runmerge_kernel): there each
 // grid step DMAs the a- and b-segments of one output block into VMEM at
 // scalar-prefetched starts, masks the tails to the sentinel tuple, runs the
 // asc ++ asc merge network (merge_kernel._merge_network) on the 2B window
-// with every lane of the tuple in it, and keeps the low half.
+// with every lane of the tuple in it, and keeps the low half; the starts come
+// from jnp in the same jit (runmerge_kernel.py:110-114: merge-path ranks of
+// a by a binary search over b, then one searchsorted over the block bounds).
 //
-// Here one CTA makes one output block k. The diagonal split comes in from
-// the wrapper (`starts`, merge-path ranks of a computed in torch): a[sa, ea)
-// and b[sb, eb) hold exactly the elements of output slots [kB, kB + B).
-// The window in shared memory carries only the n_cmp compare lanes and one
-// int32 source-index lane (a's element i is i, b's element i is na + i); the
-// tails fill with the sentinel tuple and the index 0x7FFFFFFF, above every
-// real index. B4's network (merge_halves) merges the window; then each of
-// the low B slots copies every data lane from its source index in global
-// memory. The compare prefix is an order-preserving refinement of the tuple
-// (equal prefix, equal tuple), and the index breaks the remaining ties a
-// before b and in run order, so the window's order is unique: the result is
-// the stable merge, bit for bit that of keypack.merge_take_packed, on any
-// lanes, float ties included. Shared memory is (n_cmp + 1) x 2B x 4 B — 12 KB
-// at the pipeline's 5 compare lanes and B = 256 — whatever the data width,
-// so the 10-array shortlex tuple of 15-byte words and the 18-array one of
-// 32-byte words take the same window.
+// The stable merge of two runs has one result under this order: the compare
+// prefix (an order-preserving refinement of the tuple: equal prefix, equal
+// tuple), then a before b, then run order. So any correct stable merge gives
+// the bits of keypack.merge_take_packed, on any lanes, float ties included,
+// and no network is needed. Here:
+//  - the split (runmerge_starts_kernel) is one warp per output-block
+//    boundary d = kB: the co-rank search of merge path over the stacked
+//    compare lanes in device memory (a[i] <= b[d - 1 - i] while i counts),
+//    33-ary, 32 probes a step, each a lex compare of every compare lane of
+//    both elements loaded at once (one round trip a step, about log33(n)
+//    steps: 4 at DS2's 131,072 + 98,928, where a binary search takes 18;
+//    templated on 1-9 lanes), float lanes through order_bits; it writes the
+//    (2, nblocks + 1) int32 starts of the torch split bit for bit, the last
+//    boundary past na + nb included (b's start clamped to nb);
+//  - the merge (runmerge_kernel) takes one block of B slots a CTA of B / E
+//    threads, E = 2 outputs a thread up to B = 2048. The a- and b-segments
+//    of the block hold exactly its outputs, so they are staged one after the
+//    other into a B-wide tile of shared memory with cp.async (no register
+//    round trip, every copy of a thread in flight at once, consecutive
+//    threads on consecutive words): the compare lanes, turned once into
+//    order keys (lane-major, key[l][p]), and every data lane (as many a pass
+//    as fit in shared memory). Each thread binary-searches its own diagonal
+//    in the tile and merges its E outputs, taking b only where b < a
+//    strictly, and records each output's tile position; then the threads
+//    copy every data lane out of the tile, consecutive threads writing
+//    consecutive outputs. The data lanes' copies land while the merge runs.
+//    With E = 2 the threads of a warp search and read nearly consecutive
+//    keys, so the tile's reads stay nearly free of bank conflicts.
+// The compare is the borrow chain of network.cuh (lex_less) for 1-9 compare
+// lanes, templated on the count; 10-15 run one instance with a loop over
+// the lanes. Keys are computed at load, so the merge is the same code
+// whether a lane is float or not and no template on float lanes is needed.
+// Shared memory is (n_cmp + 1 + lanes a pass) x B x 4 B: 16 KB at the
+// pipeline's 5 compare lanes, 10 data lanes and B = 256.
 //
-// What bounds it on the H100: every data lane is read once and written once,
-// so the least time is those bytes over 3.35 TB/s; the network's
-// (log2(B) + 1) x B compares per block stay below the compute peak. One CTA
-// per 256 outputs with a barrier per network step, and gathers of the data
-// lanes by index; staging with TMA and a register network are later work.
-#include "common.cuh"
+// What bounds it on the H100: every data lane is read once and written once
+// (the compare lanes, when they lead the data lanes, are read again from
+// L2), so the least time is those bytes over 3.35 TB/s; the merge's
+// log2(B) + E compares a thread stay far below the compute peak. The split
+// moves a few bytes a boundary and is bounded by the latency of its
+// dependent loads, one round trip a step.
+#include "network.cuh"
 
-#define INDEX_FILL 0x7FFFFFFFu
+// outputs a thread merges, while the block takes at most 1024 threads
+#define MERGE_E 2
+// the split's threads a block: a warp a boundary
+#define SPLIT_THREADS 128
 
-__global__ void runmerge_kernel(const uint32_t* cmp_a, const uint32_t* cmp_b,
-                                const uint32_t* data_a, const uint32_t* data_b,
-                                uint32_t* out, const int* starts, int n_cmp,
-                                int n_arr, uint32_t codes, int na, int nb,
-                                int nblocks, int block) {
-  extern __shared__ uint32_t smem[];
-  int width = 2 * block;
-  Window w{smem, width, n_cmp + 1, codes};
-  uint32_t* idx = smem + (size_t)n_cmp * width;
-  int k = blockIdx.x;
-  int sa = starts[k], ca = starts[k + 1] - sa;
-  int sb = starts[nblocks + 1 + k], cb = starts[nblocks + 2 + k] - sb;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    for (int l = 0; l < n_cmp; ++l) {
-      uint32_t fill = sentinel_bits((codes >> (2 * l)) & 3);
-      smem[l * width + i] = i < ca ? cmp_a[(size_t)l * na + sa + i] : fill;
-      smem[l * width + block + i] =
-          i < cb ? cmp_b[(size_t)l * nb + sb + i] : fill;
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// lexicographic x[ix] < y[iy] over stacked compare lanes in device memory
+// (lane strides nx and ny), each lane in the order of its code: with NC
+// lanes known, every lane of both elements is loaded at once (one round
+// trip a search step); NC = 0 reads n_cmp lanes one after another
+template <int NC>
+__device__ __forceinline__ bool less_stacked(const uint32_t* x, long long nx,
+                                             long long ix, const uint32_t* y,
+                                             long long ny, long long iy,
+                                             int n_cmp, uint32_t codes) {
+  if constexpr (NC > 0) {
+    uint32_t p[NC], q[NC];
+#pragma unroll
+    for (int l = 0; l < NC; ++l) {
+      p[l] = x[l * nx + ix];
+      q[l] = y[l * ny + iy];
     }
-    idx[i] = i < ca ? (uint32_t)(sa + i) : INDEX_FILL;
-    idx[block + i] = i < cb ? (uint32_t)(na + sb + i) : INDEX_FILL;
+#pragma unroll
+    for (int l = 0; l < NC; ++l) {
+      int code = (codes >> (2 * l)) & 3;
+      p[l] = order_bits(p[l], code);
+      q[l] = order_bits(q[l], code);
+    }
+    return lex_less<NC>(p, q);
+  } else {
+    for (int l = 0; l < n_cmp; ++l) {
+      int code = (codes >> (2 * l)) & 3;
+      uint32_t p = order_bits(x[l * nx + ix], code);
+      uint32_t q = order_bits(y[l * ny + iy], code);
+      if (p != q) return p < q;
+    }
+    return false;
   }
+}
+
+// starts[0][k]: how many of the first d = k * block outputs come from a;
+// starts[1][k]: the rest, at most nb. One warp a boundary, a 33-ary search:
+// i counts while a[i] <= b[d - 1 - i] (a before b on ties), true then false
+// over the range, so each step the 32 lanes test 32 evenly spaced i at
+// once and the count of trues (a prefix of the lanes) keeps the part of
+// the range between the last true and the first false. NC as in
+// less_stacked.
+template <int NC>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+runmerge_starts_kernel(const uint32_t* __restrict__ cmp_a,
+                       const uint32_t* __restrict__ cmp_b, int* starts,
+                       int n_cmp, uint32_t codes, int na, int nb, int nblocks,
+                       int block) {
+  const int lane = threadIdx.x & 31;
+  const long long k = ((long long)blockIdx.x * SPLIT_THREADS + threadIdx.x) >> 5;
+  if (k > nblocks) return;  // the whole warp
+  const long long d = k * block;
+  long long hi = d < na ? d : na;
+  long long lo = d - nb > 0 ? d - nb : 0;
+  if (lo > hi) lo = hi;  // past the end: every a
+  while (lo < hi) {
+    const long long span = hi - lo;
+    const bool last = span <= 32;
+    // lane t's probe: lo + t in the last step, else the (t + 1)-th of 32
+    // points strictly inside the range
+    const long long m = last ? lo + lane : lo + (lane + 1) * span / 33;
+    const bool counts =
+        m < hi && !less_stacked<NC>(cmp_b, nb, d - 1 - m, cmp_a, na, m, n_cmp,
+                                    codes);
+    const int c = __popc(__ballot_sync(0xffffffffu, counts));
+    if (last) {
+      lo += c;
+      break;
+    }
+    const long long below = lo + (long long)c * span / 33;  // probe c - 1
+    const long long above = lo + (long long)(c + 1) * span / 33;  // probe c
+    if (c < 32) hi = above;
+    if (c > 0) lo = below + 1;
+  }
+  if (lane == 0) {
+    const long long j = d - lo;
+    starts[k] = (int)lo;
+    starts[nblocks + 1 + k] = (int)(j < nb ? j : nb);
+  }
+}
+
+// key[p] < key[q] in the tile (lane-major keys, lane stride `block`)
+template <int NC>
+__device__ __forceinline__ bool tile_less(const uint32_t* key, int block,
+                                          int n_cmp, int p, int q) {
+  if constexpr (NC > 0) {
+    uint32_t x[NC], y[NC];
+#pragma unroll
+    for (int l = 0; l < NC; ++l) {
+      x[l] = key[l * block + p];
+      y[l] = key[l * block + q];
+    }
+    return lex_less<NC>(x, y);
+  } else {
+    for (int l = 0; l < n_cmp; ++l) {
+      uint32_t x = key[l * block + p], y = key[l * block + q];
+      if (x != y) return x < y;
+    }
+    return false;
+  }
+}
+
+// Stage `lanes` lanes of the block's segments into `dst` (lane-major, lane
+// stride `block`): a's [sa, sa + ca) at 0, b's [sb, sb + cb) after it.
+__device__ __forceinline__ void stage(uint32_t* dst, int block,
+                                      const uint32_t* a, const uint32_t* b,
+                                      int na, int nb, int sa, int ca, int sb,
+                                      int cb, int lanes) {
+  for (int p = threadIdx.x; p < ca + cb; p += blockDim.x) {
+    const bool from_a = p < ca;
+    const uint32_t* src = from_a ? a + sa + p : b + sb + (p - ca);
+    const size_t stride = from_a ? (size_t)na : (size_t)nb;
+    for (int l = 0; l < lanes; ++l)
+      cp_async4(dst + l * block + p, src + l * stride);
+  }
+}
+
+// NC: the compare-lane count, 0 for a count read at run time (10 to 15)
+template <int NC>
+__global__ void __launch_bounds__(1024)
+runmerge_kernel(const uint32_t* cmp_a, const uint32_t* cmp_b,
+                const uint32_t* data_a, const uint32_t* data_b, uint32_t* out,
+                const int* starts, int n_cmp_rt, int n_arr, uint32_t codes,
+                int na, int nb, int nblocks, int block, int group) {
+  const int n_cmp = NC > 0 ? NC : n_cmp_rt;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* key = smem;                                // n_cmp x block
+  int* src = (int*)(smem + (size_t)n_cmp * block);     // block
+  uint32_t* tile = smem + (size_t)(n_cmp + 1) * block;  // group x block
+  const int k = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+  const int sa = starts[k], sb = starts[nblocks + 1 + k];
+  // a split that is not this kernel's own never overruns the tile
+  const int ca = max(0, min(starts[k + 1] - sa, block));
+  const int cb = max(0, min(starts[nblocks + 2 + k] - sb, block - ca));
+  const int cnt = ca + cb;
+  stage(key, block, cmp_a, cmp_b, na, nb, sa, ca, sb, cb, n_cmp);
+  cp_async_commit();
+  int lanes = min(group, n_arr);
+  stage(tile, block, data_a, data_b, na, nb, sa, ca, sb, cb, lanes);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's keys have landed
+  for (int p = tid; p < cnt; p += T)
+    for (int l = 0; l < n_cmp; ++l)
+      key[l * block + p] = order_bits(key[l * block + p], (codes >> (2 * l)) & 3);
   __syncthreads();
-  merge_halves(w, block);
-  long long total = (long long)na + nb;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    long long o = (long long)k * block + i;
-    if (o >= total) continue;
-    int src = (int)idx[i];
-    for (int l = 0; l < n_arr; ++l)
-      out[l * total + o] = src < na ? data_a[(size_t)l * na + src]
-                                    : data_b[(size_t)l * nb + (src - na)];
+
+  // outputs [d, d + E) of the block: the co-rank of d in the tile, then E
+  // steps of the merge; src[o] is output o's tile position
+  const int E = block / T;
+  const int d = tid * E;
+  if (d < cnt) {
+    int lo = max(0, d - cb), hi = min(d, ca);
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (tile_less<NC>(key, block, n_cmp, ca + d - 1 - mid, mid))
+        hi = mid;
+      else
+        lo = mid + 1;
+    }
+    int i = lo, j = d - lo;
+    for (int e = 0; e < E && d + e < cnt; ++e) {
+      bool take_b =
+          j < cb && (i >= ca || tile_less<NC>(key, block, n_cmp, ca + j, i));
+      src[d + e] = take_b ? ca + j++ : i++;
+    }
   }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const size_t total = (size_t)na + nb;
+  uint32_t* o_base = out + (size_t)k * block;
+  for (int first = 0; first < n_arr; first += group) {
+    if (first > 0) {
+      lanes = min(group, n_arr - first);
+      __syncthreads();  // every read of the previous lanes is done
+      stage(tile, block, data_a + (size_t)first * na,
+            data_b + (size_t)first * nb, na, nb, sa, ca, sb, cb, lanes);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    for (int o = tid; o < cnt; o += T) {
+      const int p = src[o];
+      for (int l = 0; l < lanes; ++l)
+        o_base[(first + l) * total + o] = tile[l * block + p];
+    }
+  }
+}
+
+template <int NC>
+static cudaError_t runmerge_launch(const uint32_t* cmp_a, const uint32_t* cmp_b,
+                                   const uint32_t* data_a,
+                                   const uint32_t* data_b, uint32_t* out,
+                                   const int* starts, int n_cmp, int n_arr,
+                                   uint32_t codes, int na, int nb, int nblocks,
+                                   int block, int group, size_t smem,
+                                   cudaStream_t stream) {
+  cudaError_t err = allow_smem(runmerge_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  int threads = block / MERGE_E < 1024 ? block / MERGE_E : 1024;
+  runmerge_kernel<NC><<<nblocks, threads, smem, stream>>>(
+      cmp_a, cmp_b, data_a, data_b, out, starts, n_cmp, n_arr, codes, na, nb,
+      nblocks, block, group);
+  return cudaGetLastError();
 }
 
 // Merge the sorted runs a and b, stacked (arrays, n) int32 lanes: `cmp_*`
 // (n_cmp, n) the compare lanes, `data_*` (n_arr, n) the lanes to merge (the
 // same memory as cmp_* when the compare lanes lead the tuple), `out`
-// (n_arr, na + nb), `starts` (2, nblocks + 1) the diagonal split. `codes`
-// holds the compare lanes' codes and, at position n_cmp, the index lane's.
+// (n_arr, na + nb), `starts` (2, nblocks + 1) the diagonal split.
+// `codes` holds the compare lanes' codes.
 extern "C" int runmerge_lex(const void* cmp_a, const void* cmp_b,
                             const void* data_a, const void* data_b, void* out,
                             const void* starts, int n_cmp, int n_arr,
                             unsigned codes, int na, int nb, int nblocks,
                             int block, void* stream) {
   if (nblocks == 0) return cudaSuccess;
-  if (block < 1 || (block & (block - 1)) || n_cmp < 1 || n_cmp > 15 ||
-      (long long)nblocks * block < (long long)na + nb)
+  if (block < 2 * MERGE_E || (block & (block - 1)) || n_cmp < 1 ||
+      n_cmp > 15 || n_arr < 1 || (long long)nblocks * block < (long long)na + nb)
     return cudaErrorInvalidValue;
-  size_t smem = (size_t)(n_cmp + 1) * 2 * block * sizeof(uint32_t);
-  cudaError_t err = allow_smem(runmerge_kernel, smem);
-  if (err != cudaSuccess) return err;
-  runmerge_kernel<<<nblocks, threads_for(block), smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)cmp_a, (const uint32_t*)cmp_b, (const uint32_t*)data_a,
-      (const uint32_t*)data_b, (uint32_t*)out, (const int*)starts, n_cmp,
-      n_arr, codes, na, nb, nblocks, block);
+  // data lanes a pass: all that fit beside the keys and positions
+  long long room = SMEM_LIMIT / (4LL * block) - n_cmp - 1;
+  if (room < 1) return cudaErrorInvalidValue;
+  int group = n_arr < room ? n_arr : (int)room;
+  size_t smem = (size_t)(n_cmp + 1 + group) * block * sizeof(uint32_t);
+  const uint32_t *ca = (const uint32_t*)cmp_a, *cb = (const uint32_t*)cmp_b;
+  const uint32_t *da = (const uint32_t*)data_a, *db = (const uint32_t*)data_b;
+  uint32_t* o = (uint32_t*)out;
+  const int* s = (const int*)starts;
+  cudaStream_t st = (cudaStream_t)stream;
+#define RUNMERGE_CASE(NC)                                                   \
+  case NC:                                                                  \
+    return runmerge_launch<NC>(ca, cb, da, db, o, s, n_cmp, n_arr, codes, na, \
+                               nb, nblocks, block, group, smem, st);
+  switch (n_cmp) {
+    RUNMERGE_CASE(1) RUNMERGE_CASE(2) RUNMERGE_CASE(3) RUNMERGE_CASE(4)
+    RUNMERGE_CASE(5) RUNMERGE_CASE(6) RUNMERGE_CASE(7) RUNMERGE_CASE(8)
+    RUNMERGE_CASE(9)
+    default:
+      return runmerge_launch<0>(ca, cb, da, db, o, s, n_cmp, n_arr, codes, na,
+                                nb, nblocks, block, group, smem, st);
+  }
+#undef RUNMERGE_CASE
+}
+
+// The diagonal split of sorted runs a and b for `block`-slot output blocks:
+// `starts` (2, nblocks + 1) int32, from their stacked (n_cmp, n) compare
+// lanes `cmp_*` and the lanes' `codes`.
+extern "C" int runmerge_starts(const void* cmp_a, const void* cmp_b,
+                               void* starts, int n_cmp, unsigned codes, int na,
+                               int nb, int nblocks, int block, void* stream) {
+  if (block < 1 || n_cmp < 1 || n_cmp > 15 || nblocks < 0)
+    return cudaErrorInvalidValue;
+  const int threads = SPLIT_THREADS, per = SPLIT_THREADS / 32;
+  const int grid = (nblocks + 1 + per - 1) / per;
+  const uint32_t *a = (const uint32_t*)cmp_a, *b = (const uint32_t*)cmp_b;
+  int* s = (int*)starts;
+  cudaStream_t st = (cudaStream_t)stream;
+#define STARTS_CASE(NC)                                                     \
+  case NC:                                                                  \
+    runmerge_starts_kernel<NC><<<grid, threads, 0, st>>>(a, b, s, n_cmp,    \
+                                                         codes, na, nb,     \
+                                                         nblocks, block);   \
+    break;
+  switch (n_cmp) {
+    STARTS_CASE(1) STARTS_CASE(2) STARTS_CASE(3) STARTS_CASE(4)
+    STARTS_CASE(5) STARTS_CASE(6) STARTS_CASE(7) STARTS_CASE(8)
+    STARTS_CASE(9)
+    default:
+      runmerge_starts_kernel<0><<<grid, threads, 0, st>>>(
+          a, b, s, n_cmp, codes, na, nb, nblocks, block);
+  }
+#undef STARTS_CASE
   return cudaGetLastError();
 }

@@ -7,6 +7,9 @@ Both sort each row of a stacked ``(A, R, C)`` int32 lane tensor (see
 compare-exchanging the pairs ``(i, i+1)`` with ``i = p mod 2`` — the network
 of ``repro.kernels.oets_kernel`` (partners from two rolls and parity masks),
 so all three agree bit for bit. The caller pads (``ops.sort_rows_lex``).
+On the card, rows of up to 128 columns (every row of the OETS tier) sort
+one warp a row in registers and shuffles, wider rows one block a row in
+shared memory.
 """
 
 from __future__ import annotations

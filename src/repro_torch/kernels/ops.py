@@ -57,7 +57,8 @@ from .bitonic_kernel import bitonic_rows_lex
 from .distribute_kernel import distribute_rows
 from .keypack import (merge_take_packed, pack_rank_keys, plan_pack,
                       unpack_rank_keys)
-from .kway_kernel import merge_runs_kway_kernel, merge_runs_kway_take
+from .kway_kernel import (MAX_RUNS, merge_runs_kway_kernel,
+                          merge_runs_kway_take)
 from .lex import (F32, as_bits, dtype_code, from_bits, lex_merge_take,
                   pad_bits, sentinel_bits)
 from .oets_kernel import oets_rows_lex
@@ -496,17 +497,21 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor, engine: str = "auto",
     return out
 
 
-def choose_kway_engine(total: int, engine: str = "auto",
-                       device=None) -> str:
-    """Pick the k-way merge tier: 'kernel' (the one-launch k-way kernel,
-    B6) for runs on a CUDA device past two output blocks, else 'take' (one
-    stable sort of the compare lanes and one gather per lane) — the rule of
-    :func:`choose_merge_engine`. An explicit ``engine`` overrides."""
+def choose_kway_engine(total: int, engine: str = "auto", device=None,
+                       n_runs: int = 2) -> str:
+    """Pick the k-way merge tier for ``n_runs`` non-empty runs of ``total``
+    elements: 'kernel' (the one-launch k-way kernel, B6) for runs on a CUDA
+    device past two output blocks, as long as one launch takes them all
+    (``kway_kernel.MAX_RUNS``), else 'take' (one stable sort of the compare
+    lanes and one gather per lane) — the rule of :func:`choose_merge_engine`;
+    past ``MAX_RUNS`` runs 'take', the reference's own tier off the TPU. An
+    explicit ``engine`` overrides (and 'kernel' past ``MAX_RUNS`` raises)."""
     if engine != "auto":
         if engine not in ("take", "kernel"):
             raise ValueError(f"unknown k-way engine {engine!r}")
         return engine
-    if _on_cuda(device) and total > 2 * DEFAULT_MERGE_BLOCK:
+    if (_on_cuda(device) and total > 2 * DEFAULT_MERGE_BLOCK
+            and n_runs <= MAX_RUNS):
         return "kernel"
     return "take"
 
@@ -526,7 +531,8 @@ def merge_runs_lex(runs, engine: str = "auto", n_cmp: int | None = None,
     if len(nonempty) == 1:
         return nonempty[0]
     total = sum(r[0].shape[0] for r in nonempty)
-    if choose_kway_engine(total, engine, nonempty[0][0].device) == "kernel":
+    if choose_kway_engine(total, engine, nonempty[0][0].device,
+                          len(nonempty)) == "kernel":
         return merge_runs_kway_kernel(nonempty, n_cmp=n_cmp,
                                       max_values=max_values, block=block_size)
     return merge_runs_kway_take(nonempty, n_cmp=n_cmp, max_values=max_values)

@@ -1,25 +1,25 @@
 """B5: merge-path combine of two sorted runs, one output block at a time —
-a hand-written CUDA kernel (``csrc/runmerge.cu``) and its plain PyTorch
-version; the counterpart of ``repro.kernels.runmerge_kernel``.
+hand-written CUDA kernels (``csrc/runmerge.cu``) and their plain PyTorch
+versions; the counterpart of ``repro.kernels.runmerge_kernel``.
 
-  1. **Diagonal split** (torch glue, :func:`merge_path_starts`): the
-     merge-path ranks of run ``a`` against run ``b`` come from
-     ``keypack.lex_searchsorted`` on the compare lanes (a before b on ties),
-     and one ``torch.searchsorted`` over those ranks gives, for every output
-     block of ``block`` slots, the segments ``a[sa:ea)`` and ``b[sb:eb)``
-     with ``(ea - sa) + (eb - sb) == block``.
-  2. **Per-block merge** (:func:`runmerge`): the segments' compare lanes and
-     an int32 source-index lane go into a ``2 * block`` window, the tails
-     filled with the sentinel tuple; B4's network (``merge_kernel``) merges
-     it, and every data lane of the low ``block`` slots is copied from its
-     source index.
+  1. **Diagonal split** (:func:`merge_path_starts`): for every output block
+     of ``block`` slots, the segments ``a[sa:ea)`` and ``b[sb:eb)`` that
+     hold its outputs, ``(ea - sa) + (eb - sb) == block``. On a CUDA device
+     the split kernel runs one merge-path co-rank search a block boundary
+     (a warp each) over the compare lanes; the plain version ranks every
+     element of ``a`` against ``b`` (``keypack.lex_searchsorted``, a before
+     b on ties) and runs one ``torch.searchsorted`` over those ranks, the
+     reference's jnp split.
+  2. **Per-block merge** (:func:`runmerge`): a block's two segments are
+     staged into one tile, each output finds its source by a co-rank search
+     inside the tile (b only where b < a strictly), and every data lane is
+     copied from its source.
 
-The window holds the compare lanes only, never the whole tuple (the
-pipeline's tuples are 10-18 arrays): the compare prefix is an
-order-preserving refinement of the tuple — equal prefix, equal tuple — and
-the index orders the remaining ties a before b and in run order, so the
-result is the stable merge, bit for bit that of
-``keypack.merge_take_packed``, on every lane type.
+Only the compare lanes are compared, never the whole tuple (the pipeline's
+tuples are 10-18 arrays): the compare prefix is an order-preserving
+refinement of the tuple — equal prefix, equal tuple — and the merge keeps a
+before b and run order on ties, so the result is the stable merge, bit for
+bit that of ``keypack.merge_take_packed``, on every lane type.
 
 Runs travel stacked: ``(lanes, n)`` int32 bit views, the compare lanes in
 their own stack (or the leading rows of the data stack).
@@ -34,26 +34,32 @@ import torch
 
 from ._build import Kernel
 from .keypack import lex_searchsorted, packed_cmp_lanes
-from .lex import I32, as_bits, codes_mask, dtype_code, from_bits, \
-    sentinel_bits
-from .merge_kernel import merge_network_plain
+from .lex import F32, I32, U32, as_bits, codes_mask, dtype_code, from_bits, \
+    lex_gt_keys, order_keys
 
-__all__ = ["KERNEL", "DEFAULT_MERGE_BLOCK", "MAX_CMP_LANES",
-           "merge_path_starts", "merge_operands", "runmerge",
-           "runmerge_plain", "merge_runs_lex_kernel", "stack_lanes",
-           "check_block", "check_runs", "window_codes"]
+__all__ = ["KERNEL", "SPLIT_KERNEL", "DEFAULT_MERGE_BLOCK", "MAX_CMP_LANES",
+           "merge_path_starts", "merge_path_starts_plain", "merge_operands",
+           "runmerge", "runmerge_plain", "merge_runs_lex_kernel",
+           "stack_lanes", "check_block", "check_runs", "cmp_codes",
+           "window_codes"]
 
 KERNEL = Kernel("merge_runs_lex", "runmerge.cu", "runmerge_lex",
                 [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_uint] + [ctypes.c_int] * 4,
                 replaces="src/repro/kernels/runmerge_kernel.py:54")
+# the split, which the reference computes in jnp inside the TPU kernel's jit
+SPLIT_KERNEL = Kernel("merge_path_starts", "runmerge.cu", "runmerge_starts",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_uint]
+                      + [ctypes.c_int] * 4,
+                      replaces="src/repro/kernels/runmerge_kernel.py:110")
 
 # one output block per CTA: the reference's tile
 DEFAULT_MERGE_BLOCK = 256
-# compare lanes a window takes: with the index lane, 16 two-bit codes fill
+# compare lanes a merge takes: with B6's index lane, 16 two-bit codes fill
 # the kernels' 32-bit codes argument
 MAX_CMP_LANES = 15
 _INDEX_FILL = (1 << 31) - 1
+_DTYPES = {U32: torch.uint32, I32: torch.int32, F32: torch.float32}
 
 
 def stack_lanes(lanes) -> torch.Tensor:
@@ -79,57 +85,117 @@ def check_runs(runs) -> list:
     return runs
 
 
-def window_codes(cmp_lanes) -> list:
-    """The codes of a merge window: the compare lanes', then the index
-    lane's."""
-    codes = [dtype_code(a.dtype) for a in cmp_lanes] + [I32]
-    if len(codes) > MAX_CMP_LANES + 1:
+def cmp_codes(cmp_lanes) -> list:
+    """The codes of the compare lanes; raises past :data:`MAX_CMP_LANES`."""
+    codes = [dtype_code(a.dtype) for a in cmp_lanes]
+    if len(codes) > MAX_CMP_LANES:
         raise ValueError(f"at most {MAX_CMP_LANES} compare lanes, got "
-                         f"{len(codes) - 1}")
+                         f"{len(codes)}")
     return codes
 
 
-def merge_path_starts(cmp_a, cmp_b, block: int) -> torch.Tensor:
-    """The diagonal split: ``(2, nblocks + 1)`` int32, row 0 the start of
-    each output block's a-segment, row 1 its b-segment's, for sorted runs
-    with compare lanes ``cmp_a`` and ``cmp_b`` (a before b on ties)."""
-    na, nb = cmp_a[0].shape[0], cmp_b[0].shape[0]
-    dev = cmp_a[0].device
+def window_codes(cmp_lanes) -> list:
+    """The codes of a k-way window (B6): the compare lanes', then the index
+    lane's."""
+    return cmp_codes(cmp_lanes) + [I32]
+
+
+def _check_stacked(t: torch.Tensor, rows: int, what: str):
+    if (t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous()
+            or t.shape[0] != rows):
+        raise ValueError(f"{what}: expected contiguous stacked ({rows}, n) "
+                         f"int32 lanes, got {tuple(t.shape)} {t.dtype}")
+
+
+def merge_path_starts_plain(cmp_a: torch.Tensor, cmp_b: torch.Tensor,
+                            codes: Sequence[int], block: int) -> torch.Tensor:
+    """The plain split, the reference's jnp split in torch: the merge-path
+    rank of every element of a (its index plus the elements of b strictly
+    below it), then one ``torch.searchsorted`` of the block bounds over
+    those ranks. Returns ``(2, nblocks + 1)`` int32."""
+    na, nb = cmp_a.shape[1], cmp_b.shape[1]
+    dev = cmp_a.device
     nblocks = -(-(na + nb) // block)
+
+    def lanes(x):
+        return [from_bits(r, _DTYPES[c]) for r, c in zip(x, codes)]
+
     rank_a = torch.arange(na, device=dev) + lex_searchsorted(
-        cmp_b, cmp_a, side="left")
+        lanes(cmp_b), lanes(cmp_a), side="left")
     bounds = torch.arange(nblocks + 1, device=dev) * block
     a_starts = torch.searchsorted(rank_a, bounds, side="left")
     b_starts = (bounds - a_starts).clamp(0, nb)
     return torch.stack([a_starts, b_starts]).to(torch.int32)
 
 
+def merge_path_starts(cmp_a, cmp_b, block: int,
+                      codes: Sequence[int] | None = None) -> torch.Tensor:
+    """The diagonal split: ``(2, nblocks + 1)`` int32, row 0 the start of
+    each output block's a-segment, row 1 its b-segment's, for sorted runs
+    with compare lanes ``cmp_a`` and ``cmp_b`` (a before b on ties): each a
+    sequence of 1-D tensors, or, with ``codes`` their lanes' codes, their
+    stacked ``(n_cmp, n)`` int32 bits (:func:`stack_lanes`). A CPU tensor
+    runs the plain version; a CUDA tensor launches the split kernel."""
+    if codes is None:
+        codes = cmp_codes(cmp_a)
+        cmp_a, cmp_b = stack_lanes(cmp_a), stack_lanes(cmp_b)
+    n_cmp = len(codes)
+    if not 1 <= n_cmp <= MAX_CMP_LANES:
+        raise ValueError(f"merge_path_starts: need 1 to {MAX_CMP_LANES} "
+                         "compare lanes")
+    _check_stacked(cmp_a, n_cmp, "merge_path_starts")
+    _check_stacked(cmp_b, n_cmp, "merge_path_starts")
+    if cmp_a.device.type == "cpu":
+        return merge_path_starts_plain(cmp_a, cmp_b, codes, block)
+    na, nb = cmp_a.shape[1], cmp_b.shape[1]
+    if na + nb >= _INDEX_FILL:
+        raise ValueError("merge_path_starts: runs of 2^31 - 1 elements or "
+                         "more")
+    nblocks = -(-(na + nb) // block)
+    starts = torch.empty((2, nblocks + 1), dtype=torch.int32,
+                         device=cmp_a.device)
+    SPLIT_KERNEL(cmp_a.device, cmp_a.data_ptr(), cmp_b.data_ptr(),
+                 starts.data_ptr(), n_cmp, codes_mask(codes), na, nb,
+                 nblocks, block)
+    return starts
+
+
 def runmerge_plain(cmp_a, cmp_b, data_a, data_b, starts, codes: Sequence[int],
                    block: int) -> torch.Tensor:
-    """The plain version: every block's window built with gathers and run
-    through B4's network (``merge_kernel.merge_network_plain``), then the
-    data lanes gathered by the merged index lane. Returns ``(n_arr, na +
-    nb)`` int32."""
-    n_cmp, na = cmp_a.shape
-    nb = cmp_b.shape[1]
+    """The plain version, the kernel's steps over every block at once:
+    each block's tile (its a-segment at the split's start, then its
+    b-segment), every output slot's co-rank in the tile by a binary search
+    over the compare lanes' order keys, its source (b only where b < a
+    strictly), then one gather per data lane. Returns ``(n_arr, na + nb)``
+    int32."""
+    na, nb = cmp_a.shape[1], cmp_b.shape[1]
+    total = na + nb
+    if total == 0:
+        return torch.cat([data_a, data_b], dim=1)
     dev = cmp_a.device
-    nblocks = starts.shape[1] - 1
-    col = torch.arange(block, device=dev)
     s = starts.to(torch.int64)
+    sa, sb = s[0, :-1, None], s[1, :-1, None]       # (nblocks, 1)
+    ca, cb = s[0, 1:, None] - sa, s[1, 1:, None] - sb
+    # a's element i at i, b's element j at na + j
+    keys = order_keys(torch.cat([cmp_a, cmp_b], dim=1), codes)
 
-    def half(cmp, bounds, base):
-        pos = bounds[:-1, None] + col                  # (nblocks, block)
-        valid = pos < bounds[1:, None]
-        src = pos.clamp(max=max(cmp.shape[1] - 1, 0))
-        lanes = [torch.where(valid, cmp[l][src] if cmp.shape[1] else 0,
-                             sentinel_bits(codes[l])) for l in range(n_cmp)]
-        idx = torch.where(valid, pos + base, _INDEX_FILL).to(torch.int32)
-        return torch.stack(lanes + [idx])
+    def less(p, q):                                  # keys[p] < keys[q]
+        return lex_gt_keys(keys[:, q.clamp(0, total - 1)],
+                           keys[:, p.clamp(0, total - 1)])
 
-    window = torch.cat([half(cmp_a, s[0], 0), half(cmp_b, s[1], na)], dim=2)
-    merged = merge_network_plain(window, codes, block)
-    idx = merged[n_cmp, :, :block].reshape(-1)[:na + nb].to(torch.int64)
-    return torch.cat([data_a, data_b], dim=1)[:, idx]
+    d = torch.arange(block, device=dev)              # each slot's diagonal
+    hi = torch.minimum(d, ca)
+    lo = torch.minimum((d - cb).clamp(min=0), hi)
+    for _ in range(block.bit_length() + 1):
+        mid = (lo + hi) >> 1
+        b_first = less(na + sb + d - 1 - mid, sa + mid)
+        active = lo < hi
+        hi = torch.where(active & b_first, mid, hi)
+        lo = torch.where(active & ~b_first, mid + 1, lo)
+    j = d - lo
+    take_b = (j < cb) & ((lo >= ca) | less(na + sb + j, sa + lo))
+    src = torch.where(take_b, na + sb + j, sa + lo)
+    return torch.cat([data_a, data_b], dim=1)[:, src[d < ca + cb]]
 
 
 def runmerge(cmp_a: torch.Tensor, cmp_b: torch.Tensor, data_a: torch.Tensor,
@@ -137,10 +203,10 @@ def runmerge(cmp_a: torch.Tensor, cmp_b: torch.Tensor, data_a: torch.Tensor,
              block: int) -> torch.Tensor:
     """Merge sorted runs a and b, stacked ``(lanes, n)`` int32: ``cmp_*``
     their compare lanes, ``data_*`` the lanes to merge, ``starts`` the
-    diagonal split of :func:`merge_path_starts`, ``codes`` the window's
-    codes (:func:`window_codes`). Returns the merged ``(n_arr, na + nb)``
-    int32 data lanes. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel."""
+    diagonal split of :func:`merge_path_starts` (int32), ``codes`` the
+    compare lanes' codes (:func:`cmp_codes`). Returns the merged ``(n_arr,
+    na + nb)`` int32 data lanes. A CPU tensor runs the plain version; a
+    CUDA tensor launches the kernel."""
     n_cmp, na = cmp_a.shape
     n_arr, nb = data_a.shape[0], cmp_b.shape[1]
     for t, rows, n in ((cmp_a, n_cmp, na), (cmp_b, n_cmp, nb),
@@ -149,9 +215,9 @@ def runmerge(cmp_a: torch.Tensor, cmp_b: torch.Tensor, data_a: torch.Tensor,
                 or tuple(t.shape) != (rows, n)):
             raise ValueError("runmerge: expected contiguous stacked int32 "
                              f"runs, got {tuple(t.shape)} {t.dtype}")
-    if len(codes) != n_cmp + 1 or n_cmp > MAX_CMP_LANES:
+    if len(codes) != n_cmp or n_cmp > MAX_CMP_LANES:
         raise ValueError(f"runmerge: need 1 to {MAX_CMP_LANES} compare lanes "
-                         f"and a code each plus the index lane's")
+                         "and a code each")
     if na + nb >= _INDEX_FILL:
         raise ValueError("runmerge: runs of 2^31 - 1 elements or more")
     nblocks = starts.shape[1] - 1
@@ -160,9 +226,10 @@ def runmerge(cmp_a: torch.Tensor, cmp_b: torch.Tensor, data_a: torch.Tensor,
     if cmp_a.device.type == "cpu":
         return runmerge_plain(cmp_a, cmp_b, data_a, data_b, starts, codes,
                               block)
+    if starts.dtype != torch.int32 or not starts.is_contiguous():
+        raise ValueError("runmerge: the split must be contiguous int32")
     out = torch.empty((n_arr, na + nb), dtype=torch.int32,
                       device=cmp_a.device)
-    starts = starts.to(torch.int32).contiguous()
     KERNEL(cmp_a.device, cmp_a.data_ptr(), cmp_b.data_ptr(),
            data_a.data_ptr(), data_b.data_ptr(), out.data_ptr(),
            starts.data_ptr(), n_cmp, n_arr, codes_mask(codes), na, nb,
@@ -172,20 +239,20 @@ def runmerge(cmp_a: torch.Tensor, cmp_b: torch.Tensor, data_a: torch.Tensor,
 
 def merge_operands(a_lanes, b_lanes, n_cmp: int | None = None,
                    max_values=None, block: int = DEFAULT_MERGE_BLOCK):
-    """The arguments of :func:`runmerge` but ``block`` for two non-empty
-    sorted runs: ``(cmp_a, cmp_b, data_a, data_b, starts, codes)``."""
+    """The arguments of :func:`runmerge` but ``block`` for two sorted runs:
+    ``(cmp_a, cmp_b, data_a, data_b, starts, codes)``."""
     if n_cmp is None:
         cmp_a = packed_cmp_lanes(a_lanes, max_values)
         cmp_b = packed_cmp_lanes(b_lanes, max_values)
     else:
         cmp_a, cmp_b = a_lanes[:n_cmp], b_lanes[:n_cmp]
-    codes = window_codes(cmp_a)
-    starts = merge_path_starts(cmp_a, cmp_b, block)
+    codes = cmp_codes(cmp_a)
     data_a, data_b = stack_lanes(a_lanes), stack_lanes(b_lanes)
     if n_cmp is None:
         sa, sb = stack_lanes(cmp_a), stack_lanes(cmp_b)
     else:
         sa, sb = data_a[:n_cmp], data_b[:n_cmp]
+    starts = merge_path_starts(sa, sb, block, codes)
     return sa, sb, data_a, data_b, starts, codes
 
 

@@ -44,7 +44,8 @@ def merge_runs(runs, engine: str = "auto", max_values=None, cmp_runs=None,
 
     - ``'kway'`` (and ``'auto'``, which resolves to it): one call of
       ``ops.merge_runs_lex`` — one pass for any k, the k-way kernel (B6)
-      on a CUDA device past two output blocks;
+      on a CUDA device past two output blocks and up to
+      ``kway_kernel.MAX_RUNS`` non-empty runs, the 'take' tier past them;
     - ``'kway_kernel'``: the same, the kernel forced (its plain version on
       the CPU);
     - ``'tournament'``: ceil(log2 k) rounds of pairwise

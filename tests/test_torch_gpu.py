@@ -19,7 +19,7 @@ from repro_torch.kernels import (adversarial, bitonic_kernel,
                                  partition_kernel, runmerge_kernel)
 from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.keypack import packed_cmp_lanes
-from repro_torch.pipeline import chunked_sort_words
+from repro_torch.pipeline import chunked_sort_words, merge_runs
 from repro_torch.pipeline.validate import order_bits_view
 
 pytestmark = pytest.mark.gpu
@@ -197,8 +197,10 @@ def test_runmerge_kernel_matches_plain(cuda, kind, sizes):
     runs, n_cmp = _sorted_runs(4, sizes, kind)
     a, b = _to(runs, cuda)
     before = runmerge_kernel.KERNEL.launches
+    split = runmerge_kernel.SPLIT_KERNEL.launches
     got = runmerge_kernel.merge_runs_lex_kernel(a, b, n_cmp=n_cmp)
     assert runmerge_kernel.KERNEL.launches == before + 1
+    assert runmerge_kernel.SPLIT_KERNEL.launches == split + 1
     want = runmerge_kernel.merge_runs_lex_kernel(*runs, n_cmp=n_cmp)
     _same_bits(got, want)
 
@@ -220,6 +222,31 @@ def test_kway_kernel_refuses_more_runs_than_a_launch_takes(cuda):
             for r in range(kway_kernel.MAX_RUNS + 1)]
     with pytest.raises(ValueError, match="at most"):
         kway_kernel.merge_runs_kway_kernel(runs)
+
+
+@pytest.mark.parametrize("engine", ["auto", "kway"])
+def test_kway_front_ends_merge_past_one_launch_on_the_card(cuda, engine):
+    """1025 one-element runs: past what one launch of the k-way kernel
+    takes, so the front end takes the 'take' tier (its result the CPU's)."""
+    rng = np.random.default_rng(23)
+    keys = rng.integers(-40, 40, kway_kernel.MAX_RUNS + 1).astype(np.int32)
+    runs = [(torch.from_numpy(keys[r:r + 1]), torch.tensor([r],
+                                                           dtype=torch.int32))
+            for r in range(len(keys))]
+    before = kway_kernel.KERNEL.launches
+    got = merge_runs(_to(runs, cuda), engine=engine)
+    assert kway_kernel.KERNEL.launches == before
+    _same_bits(got, merge_runs(runs, engine=engine))
+    order = np.lexsort((np.arange(len(keys)), keys))
+    assert got[1].cpu().tolist() == order.tolist()
+
+
+def test_chunked_sort_of_1030_chunks_on_the_card(cuda):
+    """More chunks than one launch of the k-way kernel merges: the default
+    merge engine still returns the shortlex order."""
+    words = synthetic_words(1030, seed=0)
+    got = chunked_sort_words(words, chunk_size=1, device=cuda)
+    assert got == sorted(words, key=lambda w: (len(w.encode()), w.encode()))
 
 
 @pytest.mark.parametrize("engine,kernel", [
@@ -433,3 +460,52 @@ def test_partition_kernel_sweep_matches_plain(cuda, n_spl, cols):
         assert torch.equal(g, w)
     ref = torch.searchsorted(torch.sort(spl).values, keys, right=True)
     assert torch.equal(got[0].long(), ref)
+
+
+# --- B1's warp and shared-memory kernels, B5's split and merge --------------
+
+@pytest.mark.parametrize("fill", adversarial.FILLS)
+@pytest.mark.parametrize("code", [lex.U32, lex.I32, lex.F32])
+@pytest.mark.parametrize("n", _MERGE_LANES)
+def test_oets_kernel_sweep_matches_plain(cuda, n, code, fill):
+    """1, 17, 33 and 133 rows (a block's last warps without a row), 100 and
+    128 columns (one warp a row, in registers) and 256 (a block a row, in
+    shared memory): the plain version's bits, and the stable sort's."""
+    rng = np.random.default_rng([n, code, len(fill), 1])
+    codes = [code] * n
+    for rows in (1, 17, 33, 133):
+        for cols in (100, 128, 256):
+            x = torch.from_numpy(adversarial.lane_bits(rng, (n, rows, cols),
+                                                       code, fill))
+            before = oets_kernel.KERNEL.launches
+            got = oets_kernel.oets_rows_lex(x.to(cuda), codes).cpu()
+            assert oets_kernel.KERNEL.launches == before + 1
+            assert torch.equal(got, oets_kernel.oets_rows_lex_plain(
+                x, codes)), (rows, cols)
+            assert torch.equal(got, _sort_blocks(x, codes, cols)), (rows, cols)
+
+
+@pytest.mark.parametrize("fill", adversarial.FILLS)
+@pytest.mark.parametrize("n_cmp", range(1, runmerge_kernel.MAX_CMP_LANES + 1))
+def test_runmerge_kernel_sweep_matches_plain(cuda, n_cmp, fill):
+    """Every compare-lane count at every co-rank edge of
+    ``adversarial.MERGE_EDGES``, blocks 128 and 256: the split kernel's
+    starts equal the plain split's, and the merge's bits the plain
+    merge's."""
+    rng = np.random.default_rng([n_cmp, len(fill), 9])
+    for edge in adversarial.MERGE_EDGES:
+        a, b, codes = adversarial.merge_case(rng, n_cmp, fill, edge)
+        da, db = (torch.from_numpy(np.stack(r)).to(cuda) for r in (a, b))
+        sa, sb = da[:n_cmp], db[:n_cmp]
+        for block in (128, 256):
+            before = runmerge_kernel.SPLIT_KERNEL.launches
+            starts = runmerge_kernel.merge_path_starts(sa, sb, block, codes)
+            assert runmerge_kernel.SPLIT_KERNEL.launches == before + 1
+            assert torch.equal(starts, runmerge_kernel.merge_path_starts_plain(
+                sa, sb, codes, block)), (edge, block)
+            before = runmerge_kernel.KERNEL.launches
+            got = runmerge_kernel.runmerge(sa, sb, da, db, starts, codes,
+                                           block)
+            assert runmerge_kernel.KERNEL.launches == before + 1
+            assert torch.equal(got, runmerge_kernel.runmerge_plain(
+                sa, sb, da, db, starts, codes, block)), (edge, block)

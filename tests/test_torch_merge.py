@@ -23,10 +23,12 @@ from repro.kernels import ops as rops
 from repro.kernels.kway_kernel import kway_ranks as ref_kway_ranks
 from repro.kernels.kway_kernel import merge_runs_kway_pallas
 from repro.kernels.runmerge_kernel import merge_runs_lex_pallas
+from repro.pipeline import merge_runs as ref_merge_runs
 from repro.pipeline.validate import check_lanes_sorted, order_bits_view
 from repro_torch.interop import to_device
 from repro_torch.kernels import keypack, kway_kernel, lex, ops, \
     runmerge_kernel
+from repro_torch.pipeline import merge_runs
 
 
 def _lane(rng, kind, n):
@@ -424,3 +426,45 @@ def test_float_ties_fall_as_the_reference_take_tier_not_its_kernel():
                              block_size=128)
     _assert_bits(got, ref_take)
     _assert_contract(got, runs)
+
+
+# --- the k-way front ends past one launch of the k-way kernel ---------------
+
+@pytest.fixture(scope="module")
+def runs_past_one_launch():
+    """``kway_kernel.MAX_RUNS + 1`` one-element runs of two int32 lanes (a
+    key with ties across runs, and the run's index), and the reference's
+    ``merge_runs(engine='auto')`` of them."""
+    rng = np.random.default_rng(23)
+    n = kway_kernel.MAX_RUNS + 1
+    keys = rng.integers(-40, 40, n).astype(np.int32)
+    runs = [(keys[r:r + 1], np.array([r], np.int32)) for r in range(n)]
+    return runs, ref_merge_runs([_j(r) for r in runs], engine="auto")
+
+
+def test_kway_auto_takes_the_take_tier_past_one_launch():
+    big = kway_kernel.MAX_RUNS
+    assert ops.choose_kway_engine(10_000, device="cuda",
+                                  n_runs=big) == "kernel"
+    assert ops.choose_kway_engine(10_000, device="cuda",
+                                  n_runs=big + 1) == "take"
+    assert ops.choose_kway_engine(10_000, "kernel", device="cuda",
+                                  n_runs=big + 1) == "kernel"
+
+
+@pytest.mark.parametrize("front", ["ops.merge_runs_lex auto",
+                                   "merge_runs auto", "merge_runs kway"])
+def test_kway_front_ends_merge_past_one_launch_on_the_cards_routing(
+        runs_past_one_launch, monkeypatch, front):
+    """With the card's routing (``ops._on_cuda`` true), the front ends of
+    one k-way pass route 1025 runs to the 'take' tier and return the
+    reference's merge; the kernel's own refusal stays
+    (``test_kway_kernel_refuses_more_runs_than_a_launch_takes``)."""
+    monkeypatch.setattr(ops, "_on_cuda", lambda device: True)
+    runs, want = runs_past_one_launch
+    runs = [_t(r) for r in runs]
+    if front == "ops.merge_runs_lex auto":
+        got = ops.merge_runs_lex(runs, engine="auto")
+    else:
+        got = merge_runs(runs, engine=front.split()[1])
+    _assert_bits(got, want)
