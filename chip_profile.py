@@ -19,10 +19,11 @@ by layer (``launch_cost``). Then, for the paper's DS1 and DS2
 For the run tier it prints:
 
   * the crossover of the run merges: ``merge_runs_lex`` with the k-way
-    kernel against the 'take' tier, and ``merge_sorted_lex`` with the
-    merge-path kernel against the 'packed' tier, over merges of 2, 8 and
-    64 runs of 1,024 to 262,144 words in all (medians of 3 host-clock
-    calls ended by a synchronize, after one warm call);
+    kernel against the 'take' tier and against the tournament, and
+    ``merge_sorted_lex`` with the merge-path kernel against the 'packed'
+    tier, over merges of 2, 8, 57, 64, 256 and 1,024 runs of 1,024 to
+    1,048,576 words in all (medians of 3 host-clock calls ended by a
+    synchronize, after one warm call);
   * a trace of one ``chunked_sort_words`` of DS2 at chunk 4096 with each
     merge engine, read as above.
 
@@ -36,9 +37,10 @@ checkout's B7 the same way:
 
 With the argument ``kernels`` it prints, the same way, only the device time
 of B1 at the OETS tier's shape, of B2 at DS2's local blocks and at the run
-tier's chunk blocks, of B3 on DS2's words, of B4 at one DS2 round and of
-B5's split and merge at DS2's last tournament round, then the host time of
-B3, of B5's split and of B5's front end (``kernel_cost``):
+tier's chunk blocks, of B3 on DS2's words, of B4 at one DS2 round, of
+B5's split and merge at DS2's last tournament round and of B6 and its
+k-way split at DS2's 57 runs, then the host time of B3, of B5's split and
+front end and of B6's split and front end (``kernel_cost``):
 
     python3 chip_profile.py kernels
 
@@ -47,6 +49,16 @@ of that phase (``chunked_cost``), whose single timed call per run spreads
 wider than the changes of a kernel PR:
 
     python3 chip_profile.py chunked
+
+With the argument ``crossover`` it prints only the crossover of the run
+merges (``crossover``), whose rows set ``ops.choose_kway_engine``'s rule:
+
+    python3 chip_profile.py crossover
+
+With the argument ``runtier`` it prints only the traces of DS2 chunked
+with each merge engine (device busy time, idle share, device events):
+
+    python3 chip_profile.py runtier
 
 With the argument ``e2e`` it runs only the end-to-end phase of
 ``chip_smoke.py`` (phase 3: the main path on the 500- and 3,000-word
@@ -197,21 +209,40 @@ def launch_cost(device):
 
 
 def crossover(device):
-    """Kernel engines against the torch tiers over merge sizes and k."""
+    """The k-way engines over merge sizes and run counts: ``merge_runs_lex``
+    with the k-way kernel (B6 and its split) against the 'take' tier and
+    against the tournament (ceil(log2 k) rounds of ``merge_sorted_lex``, B5
+    past two blocks, as ``pipeline.merge_runs(engine='tournament')`` runs
+    them), and at k = 2 ``merge_sorted_lex`` with the merge-path kernel
+    against the 'packed' tier; medians of 3 host-clock calls ended by a
+    synchronize, after one warm call."""
     import torch
     from repro_torch.core import packing
     from repro_torch.data import synthetic_words
     from repro_torch.kernels import ops
-    keys = packing.pack_words(synthetic_words(1 << 18, seed=1))
-    for total in (1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18):
-        for k in (2, 8, 64):
+    keys = packing.pack_words(synthetic_words(1 << 20, seed=1))
+
+    def tournament(ext, n_cmp):
+        while len(ext) > 1:
+            nxt = [ops.merge_sorted_lex(ext[i], ext[i + 1], n_cmp=n_cmp)
+                   for i in range(0, len(ext) - 1, 2)]
+            if len(ext) % 2:
+                nxt.append(ext[-1])
+            ext = nxt
+        return ext[0]
+
+    for total in (1 << 10, 1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20):
+        for k in (2, 8, 57, 64, 256, 1024):
             if total // k < 16:
                 continue
-            ext, n_cmp = ext_runs(keys[:total], device, chunk=total // k)
+            ext, n_cmp = ext_runs(keys[:total], device, chunk=-(-total // k))
             row = {}
-            for engine in ("take", "kernel"):
+            for engine in ("take", "kernel", "tournament"):
                 def call():
-                    ops.merge_runs_lex(ext, engine=engine, n_cmp=n_cmp)
+                    if engine == "tournament":
+                        tournament(ext, n_cmp)
+                    else:
+                        ops.merge_runs_lex(ext, engine=engine, n_cmp=n_cmp)
                     torch.cuda.synchronize()
                 row[f"kway {engine}"] = median_ms(call, runs=3, warmup=1)
             if k == 2:
@@ -221,7 +252,7 @@ def crossover(device):
                                              n_cmp=n_cmp)
                         torch.cuda.synchronize()
                     row[f"pair {engine}"] = median_ms(call, runs=3, warmup=1)
-            print(f"[crossover] total {total}, k {k}: " + ", ".join(
+            print(f"[crossover] total {total}, k {len(ext)}: " + ", ".join(
                 f"{name} {ms:.3f} ms" for name, ms in row.items()))
 
 
@@ -295,13 +326,16 @@ def kernel_cost(device):
     chunk blocks (4, 136, 512) and at the bitonic tier's 3,000-word chunk
     (4, 17, 1024), B3 on DS2's packed words (230,000, 4) and on the run
     tier's first chunk of them (4096, 4), B4 at one DS2 round (4, 17,
-    49,152), block 4096, and B5's split and merge at DS2's last tournament
-    round (10 arrays of 230,000, 5 compare lanes, block 256), each through its wrapper (the sorts on fresh copies of the same input),
-    by device event name (:func:`device_ms_by_name`); then the host time per
-    call of B3, of B5's split and of B5's front end
-    (``merge_runs_lex_kernel``). The wrappers' signatures are the same in
-    every version of the port, so the script, copied into an older
-    checkout, measures that checkout's kernels the same way."""
+    49,152), block 4096, B5's split and merge at DS2's last tournament
+    round (10 arrays of 230,000, 5 compare lanes, block 256), and B6 and
+    its k-way split at DS2's 57 runs (the torch split in a checkout
+    without ``kway_starts``), each through its wrapper (the sorts on fresh
+    copies of the same input), by device event name
+    (:func:`device_ms_by_name`); then the host time per call of B3, of B5's
+    split and front end (``merge_runs_lex_kernel``) and of B6's split and
+    front end (``merge_runs_kway_kernel``). The wrappers' signatures are
+    the same in every version of the port, so the script, copied into an
+    older checkout, measures that checkout's kernels the same way."""
     import torch
     from chip_smoke import stacked_buckets
     from repro_torch import to_device
@@ -348,6 +382,27 @@ def kernel_cost(device):
         return runmerge_kernel.merge_path_starts(run_a[:n_cmp],
                                                  run_b[:n_cmp], blk)
 
+    # B6 and its split at DS2's 57 runs: the device split where the
+    # checkout has one (kway_starts), else the torch split it replaces
+    kblk = kway_kernel.DEFAULT_KWAY_BLOCK
+    kway_ops = kway_kernel.kway_operands(ext, n_cmp, block=kblk)
+    ns = [r[0].shape[0] for r in ext]
+    if hasattr(kway_kernel, "kway_starts"):
+        kway_split_label = "B6 split kway_starts"
+
+        def kway_split():
+            return kway_kernel.kway_starts(kway_ops[0], ns, kway_ops[3],
+                                           kblk)
+    else:
+        kway_split_label = "B6 split, torch: kway_cursors(kway_ranks)"
+
+        def kway_split():
+            return kway_kernel.kway_cursors(kway_kernel.kway_ranks(
+                [r[:n_cmp] for r in ext]), kblk)
+
+    def kway_front_end():
+        return kway_kernel.merge_runs_kway_kernel(ext, n_cmp=n_cmp)
+
     def front_end():
         return runmerge_kernel.merge_runs_lex_kernel(run_a, run_b,
                                                      n_cmp=n_cmp)
@@ -377,6 +432,9 @@ def kernel_cost(device):
         ("B5 split merge_path_starts", operands[0], split),
         ("B5 merge runmerge", operands[2],
          lambda: runmerge_kernel.runmerge(*operands, blk)),
+        ("B6 merge kway_merge", kway_ops[1],
+         lambda: kway_kernel.kway_merge(*kway_ops, kblk)),
+        (kway_split_label, kway_ops[0], kway_split),
     )
     for label, t, fn in cases:
         by_name = device_ms_by_name(fn)
@@ -394,7 +452,10 @@ def kernel_cost(device):
           "us per call (host clock, 2000 calls)")
     # B5's split and front end, where the host's time per call is the cost
     for label, fn in (("B5 split merge_path_starts", split),
-                      ("B5 front end merge_runs_lex_kernel", front_end)):
+                      ("B5 front end merge_runs_lex_kernel", front_end),
+                      (kway_split_label, kway_split),
+                      ("B6 front end merge_runs_kway_kernel",
+                       kway_front_end)):
         print(f"[kernels] {label}: host {host_us(fn, calls=200, warmup=5):.2f}"
               " us per call (host clock, 200 calls); "
               f"{median_ms(lambda: (fn(), torch.cuda.synchronize())):.4f} ms "
@@ -480,6 +541,14 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["chunked"]:
         chunked_cost(device)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:] == ["crossover"]:
+        crossover(device)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:] == ["runtier"]:
+        profile_run_tier(synthetic_words(DS2.n_words, seed=DS2.seed), device)
         print(nvidia_smi())
         return 0
     if sys.argv[1:] == ["e2e"]:

@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
 It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
 
-  1. build — compile the seven CUDA kernels from ``src/repro_torch/kernels/
+  1. build — compile the seven CUDA sources of ``src/repro_torch/kernels/
      csrc`` with ``nvcc`` for ``sm_90a``, one process per source, and print
      ``-Xptxas -v``'s registers, shared memory and spills per kernel;
   2. kernels — run every kernel at the shapes its path gives it, on the
@@ -32,8 +32,12 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      sort. The merge-path kernel (B5) and its split run at the last
      tournament round of DS2 chunked at 4096 words, and at every
      compare-lane count from 1 to 15 for each fill at the co-rank edges of
-     ``adversarial.MERGE_EDGES``, blocks 128 and 256; the k-way kernel (B6)
-     at DS2's 57 runs;
+     ``adversarial.MERGE_EDGES``, blocks 128 and 256; the k-way kernel (B6),
+     its split (the key tournament's rounds on the card) and the gather of
+     the runs' lanes at DS2's 57 runs, the split held to its plain version
+     and to the torch oracle ``kway_cursors(kway_ranks(...))``, and all
+     three at 2, 3, 8, 57, 64, 257 and 1,024 runs of each fill
+     (``adversarial.kway_case``), blocks 128 and 256;
   3. main path — sort a 500-word chunk (OETS tier), a 3,000-word chunk
      (bitonic tier) and the paper's DS1 and DS2 (blocksort: bitonic + merge)
      through ``bucketed_sort_words`` and ``sorted_packed``; then the run
@@ -63,8 +67,8 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
 Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
 so the host's time per call counts where it is longer) and ``device_ms``
 (the device's own time per call, from ``torch.profiler`` over the same
-calls; ``device_ms_source`` says whether the profiler or the CUDA-graph
-fallback gave it).
+calls, traced again where a window lost events; ``device_ms_source`` says
+whether the profiler or the CUDA-graph fallback gave it).
 
 Then it prints the card's name and power limit as ``nvidia-smi`` gives them,
 one JSON line with every kernel's numbers, and last
@@ -109,6 +113,10 @@ DEVICE_NAMES = {
     "merge_runs_lex": ("runmerge_kernel",),
     "merge_path_starts": ("runmerge_starts_kernel",),
     "merge_runs_kway": ("kway_kernel",),
+    # a round's split and merge, and the cursors after the last round
+    "kway_split": ("kway_split_kernel", "kway_round_kernel",
+                   "kway_cursor_kernel"),
+    "kway_gather": ("kway_gather_kernel",),
     "partition_rows": ("partition_prep_kernel", "partition_kernel"),
 }
 SWEEP_LANES = (1, 2, 3, 4, 5, 8, 9)
@@ -141,15 +149,19 @@ def cuda_time(fn, iters: int, warmup: int = 2) -> float:
 
 
 def device_time(kernel_name: str, fn, iters: int = KERNEL_ITERS,
-                tries: int = 2):
+                tries: int = 3):
     """Device milliseconds per call of ``fn(i)`` spent in the CUDA functions
     of ``kernel_name`` (:data:`DEVICE_NAMES`), where the number comes from,
     and its split by function: ``torch.profiler``'s CUDA time by kernel
-    name over ``iters`` calls after a warm-up ('profiler'; a window that
-    shows no device time, which happens now and then, is traced again, up
-    to ``tries`` windows), or, where the profiler shows none, CUDA events
-    around the replay of a CUDA graph of ``iters`` calls, which takes the
-    host's launch cost out of the window ('graph events', no split)."""
+    name over ``iters`` calls after a warm-up ('profiler'), or, where no
+    window shows every launch, CUDA events around the replay of a CUDA
+    graph of ``iters`` calls, which takes the host's launch cost out of the
+    window ('graph events', no split). Every call launches each of its
+    functions the same number of times, so a window in which some
+    function's event count is not a multiple of ``iters`` (or that shows no
+    device time) lost events, and is traced again, up to ``tries``
+    windows: a window that lost most of B6's events read it at a quarter
+    of its time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = DEVICE_NAMES[kernel_name]
@@ -161,14 +173,15 @@ def device_time(kernel_name: str, fn, iters: int = KERNEL_ITERS,
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        split = {}
+        split, whole = {}, True
         for ev in prof.key_averages():
             name = next((n for n in names if n in ev.key), None)
             if name is not None:
                 t = getattr(ev, "device_time_total", None)
                 t = t if t is not None else ev.cuda_time_total
                 split[name] = split.get(name, 0.0) + t / iters / 1e3
-        if sum(split.values()) > 0:
+                whole = whole and ev.count % iters == 0
+        if whole and sum(split.values()) > 0:
             return sum(split.values()), "profiler", split
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -570,6 +583,51 @@ def runmerge_sweep(device) -> int:
     return worst
 
 
+def kway_sweep(device) -> int:
+    """The k-way split's rounds, the gather and B6 against their plain
+    versions at every run count of ``adversarial.KWAY_SWEEP`` (2 to
+    ``MAX_RUNS``) for each fill, on runs of 0 to 90 elements (empty and
+    one-element runs among them), blocks :data:`MERGE_SWEEP_BLOCKS`: the
+    cursors bit for bit those of the plain split and of the torch oracle
+    (``kway_cursors(kway_ranks(...))``), the gathered lanes the plain
+    concatenation's, the merge the plain merge tree's. Returns the largest
+    bit error."""
+    import numpy as np
+    import torch
+    from repro_torch import to_device
+    from repro_torch.kernels import adversarial, kway_kernel as kk
+    worst = 0
+    for k in adversarial.KWAY_SWEEP:
+        for fill in adversarial.FILLS:
+            rng = np.random.default_rng([k, len(fill), 17])
+            n_cmp = 1 + k % 5
+            runs, codes = adversarial.kway_case(rng, n_cmp, fill, k, 90)
+            runs = [tuple(to_device(r, device)) for r in runs]
+            ns = [r[0].shape[0] for r in runs]
+            oracle = kk.kway_ranks([r[:n_cmp] for r in runs])
+            err = 0
+            for block in MERGE_SWEEP_BLOCKS:
+                cmp, data, cursors, _ = kk.kway_operands(runs, n_cmp, None,
+                                                         block)
+                got = kk.kway_merge(cmp, data, cursors, codes, block)
+                flat = kk.kway_gather_plain(runs)
+                plain = kk.kway_starts_plain(flat[:n_cmp], ns, codes, block)
+                want = kk.kway_merge_plain(flat[:n_cmp], flat, plain, codes,
+                                           block)
+                torch.cuda.synchronize()
+                err = max(err, bits_err(data, flat), bits_err(cursors, plain),
+                          bits_err(cursors, kk.kway_cursors(oracle, block)),
+                          bits_err(got, want))
+            print(f"[kernels] kway_split sweep k={k} {fill}, {n_cmp} compare "
+                  f"lanes, blocks {MERGE_SWEEP_BLOCKS}: split (plain and "
+                  f"oracle), gather and merge max_abs_err {err}")
+            if err:
+                raise AssertionError(f"k-way sweep k={k} {fill}: kernels and "
+                                     "plain versions differ")
+            worst = max(worst, err)
+    return worst
+
+
 def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
     import numpy as np
     import torch
@@ -814,6 +872,29 @@ def sorted_lanes_runs(kind, sizes, rng, device):
     return runs, (3 if kind == "dup_heavy" else None)
 
 
+def front_end_events(run, expected, tries: int = 5):
+    """The names of the device events of one ``run()`` (a warm call
+    first), from ``torch.profiler``, from the first window that holds
+    ``expected[name]`` events of each CUDA function ``name`` (a window
+    that lost events is traced again, up to ``tries`` windows); None when
+    no window held them all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name.split("(")[0].replace("void ", "")
+                 for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if all(sum(f in n for n in names) == c for f, c in expected.items()):
+            return names
+    return None
+
+
 def check_merge_contract(name, got, runs):
     """``got`` (stacked int32, the merged lanes) holds the runs' tuples bit
     for bit and is sorted under the total order."""
@@ -862,9 +943,26 @@ def phase_run_merges(report, device, ds2_keys):
     ext, n_cmp = ext_runs(ds2_keys, device)
     n_arr, k = len(ext[0]), len(ext)
 
-    # B6 at DS2's 57 runs of <= 4096
-    ops = kk.kway_operands(ext, n_cmp, block=kk.DEFAULT_KWAY_BLOCK)
+    # B6 at DS2's 57 runs of <= 4096: the operands come through the
+    # gather and the split's rounds on the card
     blk = kk.DEFAULT_KWAY_BLOCK
+    ops = kk.kway_operands(ext, n_cmp, block=blk)
+    total = ops[1].shape[1]
+    cmp_runs = [r[:n_cmp] for r in ext]
+    ns = [r[0].shape[0] for r in ext]
+    codes = ops[3]
+    flat = kk.kway_gather_plain(ext)
+    plain_cursors = kk.kway_starts_plain(ops[0], ns, codes, blk)
+    oracle = kk.kway_cursors(kk.kway_ranks(cmp_runs), blk)
+    torch.cuda.synchronize()
+    gather_err = bits_err(ops[1], flat)
+    split_err = max(bits_err(ops[2], plain_cursors), bits_err(ops[2], oracle))
+    print(f"[kernels] kway_gather DS2 {k} runs, {n_arr} arrays: max_abs_err "
+          f"{gather_err}; kway_split DS2 {k} runs, {n_cmp} compare lanes: "
+          f"max_abs_err {split_err} (plain split and oracle)")
+    if gather_err or split_err:
+        raise AssertionError("kway_gather or kway_split: kernel and plain "
+                             "version differ")
     err, got = check_merge_kernel(kk.KERNEL, f"DS2 {k} runs, {n_arr} arrays",
                                   kk.kway_merge, kk.kway_merge_plain, ops, blk)
     take = kk.merge_runs_kway_take(ext, n_cmp=n_cmp)
@@ -882,10 +980,38 @@ def phase_run_merges(report, device, ds2_keys):
                                   kk.kway_merge_plain,
                                   kk.kway_operands(runs, nc), blk, runs)
         err = max(err, e)
-    total = got.shape[1]
+    sweep_err = kway_sweep(device)
     ms_engine = cuda_time(lambda i: kk.merge_runs_kway_kernel(
         ext, n_cmp=n_cmp), 3, 1)
-    report.add(kk.KERNEL, err, shape=[n_arr, total], runs=k, block=blk,
+    rounds = math.ceil(math.log2(k))
+    # one front-end call's device events: every round's split and merge,
+    # the cursors, the gather and B6 (the launch counters say how many)
+    _, counts = launch_counts(lambda: kk.merge_runs_kway_kernel(
+        ext, n_cmp=n_cmp))
+    expected = {"kway_split_kernel": counts[kk.SPLIT_KERNEL.name],
+                "kway_round_kernel": counts[kk.SPLIT_KERNEL.name],
+                "kway_cursor_kernel": 1,
+                "kway_gather_kernel": counts[kk.GATHER_KERNEL.name],
+                "kway_kernel": counts[kk.KERNEL.name]}
+    events = front_end_events(lambda: kk.merge_runs_kway_kernel(
+        ext, n_cmp=n_cmp), expected)
+    if events is None:
+        print(f"[kernels] merge_runs_kway_kernel front end, DS2 {k} runs: "
+              "device events not measured (no profiler window held every "
+              "launch)")
+    else:
+        launched = [n for n in events
+                    if not n.startswith(("Memcpy", "Memset"))]
+        print(f"[kernels] merge_runs_kway_kernel front end, DS2 {k} runs: "
+              f"{len(events)} device events, {len(launched)} kernels (at "
+              f"most {2 * rounds + 4}): {sorted(Counter(events).items())}")
+        if len(launched) > 2 * rounds + 4:
+            raise AssertionError("merge_runs_kway_kernel launched more "
+                                 "kernels than the split's rounds, the "
+                                 "gather and B6")
+    nblocks = -(-total // blk)
+    report.add(kk.KERNEL, max(err, sweep_err), shape=[n_arr, total], runs=k,
+               block=blk,
                ms=cuda_time(lambda i: kk.kway_merge(*ops, blk), KERNEL_ITERS),
                **device_fields(kk.KERNEL.name,
                                lambda i: kk.kway_merge(*ops, blk)),
@@ -893,9 +1019,63 @@ def phase_run_merges(report, device, ds2_keys):
                                   PLAIN_ITERS, 1),
                torch_tier_ms=cuda_time(lambda i: kk.merge_runs_kway_take(
                    ext, n_cmp=n_cmp), KERNEL_ITERS),
-               engine_ms=ms_engine, library_ms=None,
+               engine_ms=ms_engine,
+               front_end_device_events=None if events is None else len(events),
+               library_ms=None,
                **bound(2 * n_arr * total * 4 + ops[2].numel() * 4,
-                       total * math.ceil(math.log2(k)) * n_cmp))
+                       total * rounds * n_cmp))
+
+    def split(i):
+        return kk.kway_starts(ops[0], ns, codes, blk)
+
+    # the kernels alone, on a plan uploaded once: the device's own time,
+    # and what a CUDA graph can replay
+    lanes = kk._word_lanes(ext)
+    rounds_plan = kk.split_plan(ns)
+    plan, addr = kk._device_plan(device, rounds_plan, kk._bases(ns), lanes)
+
+    def split_kernels(i):
+        return kk._split_rounds(ops[0], codes, rounds_plan, addr, k, blk)
+
+    def gather_kernel(i):
+        return kk._gather(lanes, addr, total, device)
+
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    split(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    report.add(kk.SPLIT_KERNEL, max(split_err, sweep_err),
+               shape=[n_cmp, total], runs=k, block=blk,
+               ms=cuda_time(split, KERNEL_ITERS),
+               **device_fields(kk.SPLIT_KERNEL.name, split_kernels),
+               plain_ms=cuda_time(lambda i: kk.kway_starts_plain(
+                   ops[0], ns, codes, blk), PLAIN_ITERS, 1),
+               # the yardstick: the torch split the port ran before these
+               # kernels (kway_ranks' merge_take_packed rounds, then a
+               # searchsorted a run)
+               library_ms=cuda_time(lambda i: kk.kway_cursors(
+                   kk.kway_ranks(cmp_runs), blk), PLAIN_ITERS, 1),
+               # the least: the compare lanes read once, the cursors
+               # written; the design's floor: every round reads and writes
+               # the compare lanes' keys and the index lane
+               **bound((n_cmp * total + k * (nblocks + 1)) * 4,
+                       total * rounds * n_cmp),
+               rounds_bound_ms=2 * (n_cmp + 1) * total * 4 * rounds
+               / HBM_BYTES_PER_S * 1e3,
+               peak_bytes=peak)
+    gather_err = max(gather_err, bits_err(kk.kway_gather(ext), flat))
+    report.add(kk.GATHER_KERNEL, max(gather_err, sweep_err),
+               shape=[n_arr, total], runs=k,
+               ms=cuda_time(lambda i: kk.kway_gather(ext), KERNEL_ITERS),
+               **device_fields(kk.GATHER_KERNEL.name, gather_kernel),
+               plain_ms=cuda_time(lambda i: kk.kway_gather_plain(ext),
+                                  KERNEL_ITERS),
+               # no one PyTorch call concatenates many runs' lanes into a
+               # stack (the plain version is a torch.cat a lane)
+               library_ms=None,
+               **bound(2 * n_arr * total * 4, 0))
 
     # B5 at the last tournament round of the same runs: the merge of runs
     # [0, 32) against runs [32, 57), each side merged first
@@ -973,13 +1153,14 @@ def phase_run_merges(report, device, ds2_keys):
                library_ms=None,
                **bound(2 * n_arr * total * 4 + ops[4].numel() * 4,
                        total * n_cmp))
-    for name in (rk.KERNEL.name, rk.SPLIT_KERNEL.name, kk.KERNEL.name):
+    for name in (rk.KERNEL.name, rk.SPLIT_KERNEL.name, kk.KERNEL.name,
+                 kk.SPLIT_KERNEL.name, kk.GATHER_KERNEL.name):
         row = report.rows[name]
         print(f"[kernels] {name}: " + ", ".join(
-            f"{key} {row.get(key)}" for key in ("shape", "ms", "device_ms",
-                                            "plain_ms", "library_ms",
-                                            "torch_tier_ms", "engine_ms",
-                                            "bound_ms", "bound_by")))
+            f"{key} {row.get(key)}" for key in (
+                "shape", "ms", "device_ms", "device_ms_by_function",
+                "plain_ms", "library_ms", "torch_tier_ms", "engine_ms",
+                "bound_ms", "bound_by", "rounds_bound_ms", "peak_bytes")))
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -1073,7 +1254,8 @@ def phase_run_tier(report, device, ds2_words, big_words):
     big_keys = packing.pack_words(big_words)
     big_oracle = packing.pack_words(shortlex(big_words), width=16)
     cases = (
-        ("DS2 chunked, k-way", ds2_words, 4096, "auto", ("merge_runs_kway",),
+        ("DS2 chunked, k-way", ds2_words, 4096, "auto",
+         ("merge_runs_kway", "kway_split", "kway_gather"),
          lambda: chunked_sort_words(ds2_words, chunk_size=4096,
                                     merge_engine="auto", device=device)),
         ("DS2 chunked, tournament", ds2_words, 4096, "tournament",
@@ -1082,7 +1264,7 @@ def phase_run_tier(report, device, ds2_words, big_words):
                                     merge_engine="tournament",
                                     device=device)),
         ("1M words chunked, k-way, validate=full", big_words, 16384, "auto",
-         ("merge_runs_kway",),
+         ("merge_runs_kway", "kway_split", "kway_gather"),
          lambda: chunked_sort_packed(big_keys, chunk_size=16384,
                                      validate="full", device=device)),
     )

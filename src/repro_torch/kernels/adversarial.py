@@ -5,8 +5,9 @@ carry float NaN payloads and ±0.0 (B4's block sweep), and unsorted,
 duplicated splitter lists with keys at and beside them (B7's splitter
 sweep), and packed words whose byte lengths pile up or alternate (B3's
 sweep), and pairs of sorted runs at the co-rank edges of a two-run merge
-(B5's sweep). numpy arrays, made from the seed; nothing here touches a
-device.
+(B5's sweep), and k sorted runs of ragged lengths, empty and
+one-element runs among them (the k-way split's and B6's sweep). numpy
+arrays, made from the seed; nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import numpy as np
 
 from . import lex
 
-__all__ = ["FILLS", "WORD_FILLS", "MERGE_EDGES", "lane_bits",
-           "partition_case", "packed_words", "fill_codes", "merge_case"]
+__all__ = ["FILLS", "WORD_FILLS", "MERGE_EDGES", "KWAY_SWEEP", "lane_bits",
+           "partition_case", "packed_words", "fill_codes", "merge_case",
+           "kway_case"]
 
 FILLS = ("sentinel", "dup_heavy", "nan")
 WORD_FILLS = ("nul_ff", "one_length", "warp_alternate")
@@ -33,7 +35,11 @@ MERGE_EDGES = {
     "a_above": (400, 600),        # every b at or below every a
     "whole_blocks": (300, 212),   # 512: the last boundary lands on the end
 }
+# run counts of the k-way sweep: a pair, an odd count, DS2's 57 runs, the
+# 1M sort's 64, past a power of two, and the most one launch takes
+KWAY_SWEEP = (2, 3, 8, 57, 64, 257, 1024)
 _INFO32 = np.iinfo(np.int32)
+_VIEWS = {lex.U32: np.uint32, lex.I32: np.int32, lex.F32: np.float32}
 
 
 def lane_bits(rng: np.random.Generator, shape, code: int,
@@ -180,3 +186,26 @@ def merge_case(rng: np.random.Generator, n_cmp: int, fill: str,
             np.arange(len(idx), dtype=np.int32)]
 
     return run(ia, 0), run(ib, 1), codes
+
+
+def kway_case(rng: np.random.Generator, n_cmp: int, fill: str, k: int,
+              max_len: int):
+    """``(runs, codes)``: ``k`` runs of 0 to ``max_len`` elements (a fifth of
+    them empty and a fifth of one element), each a list of arrays —
+    ``n_cmp`` compare lanes of ``fill`` (codes :func:`fill_codes`), each
+    viewed as its code's type, then two int32 payload lanes, the run and
+    the element's index in it — sorted by the compare lanes alone."""
+    codes = fill_codes(fill, n_cmp)
+    sizes = rng.integers(0, max_len + 1, k)
+    pick = rng.random(k)
+    sizes[pick < 0.2] = 0
+    sizes[(pick >= 0.2) & (pick < 0.4)] = 1
+    runs = []
+    for r, n in enumerate(sizes):
+        lanes = np.stack([lane_bits(rng, (int(n),), c, fill) for c in codes])
+        keys = np.stack([_order_keys(x, c) for x, c in zip(lanes, codes)])
+        order = np.lexsort(keys[::-1]) if n else np.zeros(0, np.int64)
+        runs.append([x[order].view(_VIEWS[c]) for x, c in zip(lanes, codes)]
+                    + [np.full(int(n), r, np.int32),
+                       np.arange(int(n), dtype=np.int32)])
+    return runs, codes

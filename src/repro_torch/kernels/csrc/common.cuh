@@ -1,9 +1,8 @@
 // Shared pieces of the port's kernels: the lane codes, the canonical order
-// bits of kernels/lex.py, the lexicographic compare, the load/store of one
-// window of a stacked (arrays, rows, cols) lane tensor (B1's wide rows, B6),
-// and the bitonic sort of a window in shared memory one stage per barrier
-// (B6's block window). B2 and B4 run their networks from registers
-// (network.cuh).
+// bits of kernels/lex.py, the lexicographic compare and the load/store of
+// one window of a stacked (arrays, rows, cols) lane tensor (B1's wide rows).
+// B2 and B4 run their networks from registers (network.cuh); B5 and B6 merge
+// (merge_path.cuh).
 //
 // Every kernel reads each lane's raw 32 bits and its code, compares the
 // order bits computed in registers, and swaps the raw bits: an output is a
@@ -83,26 +82,6 @@ struct Window {
         x[a * lane_stride + row + i] = s[a * width + i];
   }
 };
-
-// Sort the `cols`-wide window (a power of two) ascending in place, every
-// thread of the block taking part: step (kk, j) compare-exchanges the pairs
-// (i, i ^ j) with bit j of i unset, ascending where i & kk is 0 and
-// descending elsewhere — the pairs of repro/kernels/bitonic_kernel.py.
-// Ends with a barrier; the caller puts one between the load and the call.
-__device__ __forceinline__ void sort_window(const Window& w, int cols) {
-  int half = cols / 2;
-  for (int kk = 2; kk <= cols; kk <<= 1) {
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-      for (int k = threadIdx.x; k < half; k += blockDim.x) {
-        int i = 2 * k - (k & (j - 1));  // the k-th index with bit j unset
-        int p = i + j;
-        if ((i & kk) == 0) w.cmpx(i, p);
-        else w.cmpx(p, i);
-      }
-      __syncthreads();
-    }
-  }
-}
 
 // Threads for a block that works on `pairs` compare-exchanges per step:
 // whole warps, at most 1024.

@@ -41,6 +41,8 @@
 // lanes, templated on the count; 10-15 run one instance with a loop over
 // the lanes. Keys are computed at load, so the merge is the same code
 // whether a lane is float or not and no template on float lanes is needed.
+// The staging, the compares and both co-rank searches live in
+// merge_path.cuh, which the k-way split's rounds (kway.cu) share.
 // Shared memory is (n_cmp + 1 + lanes a pass) x B x 4 B: 16 KB at the
 // pipeline's 5 compare lanes, 10 data lanes and B = 256.
 //
@@ -50,69 +52,13 @@
 // log2(B) + E compares a thread stay far below the compute peak. The split
 // moves a few bytes a boundary and is bounded by the latency of its
 // dependent loads, one round trip a step.
-#include "network.cuh"
+#include "merge_path.cuh"
 
 // outputs a thread merges, while the block takes at most 1024 threads
 #define MERGE_E 2
-// the split's threads a block: a warp a boundary
-#define SPLIT_THREADS 128
-
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// lexicographic x[ix] < y[iy] over stacked compare lanes in device memory
-// (lane strides nx and ny), each lane in the order of its code: with NC
-// lanes known, every lane of both elements is loaded at once (one round
-// trip a search step); NC = 0 reads n_cmp lanes one after another
-template <int NC>
-__device__ __forceinline__ bool less_stacked(const uint32_t* x, long long nx,
-                                             long long ix, const uint32_t* y,
-                                             long long ny, long long iy,
-                                             int n_cmp, uint32_t codes) {
-  if constexpr (NC > 0) {
-    uint32_t p[NC], q[NC];
-#pragma unroll
-    for (int l = 0; l < NC; ++l) {
-      p[l] = x[l * nx + ix];
-      q[l] = y[l * ny + iy];
-    }
-#pragma unroll
-    for (int l = 0; l < NC; ++l) {
-      int code = (codes >> (2 * l)) & 3;
-      p[l] = order_bits(p[l], code);
-      q[l] = order_bits(q[l], code);
-    }
-    return lex_less<NC>(p, q);
-  } else {
-    for (int l = 0; l < n_cmp; ++l) {
-      int code = (codes >> (2 * l)) & 3;
-      uint32_t p = order_bits(x[l * nx + ix], code);
-      uint32_t q = order_bits(y[l * ny + iy], code);
-      if (p != q) return p < q;
-    }
-    return false;
-  }
-}
 
 // starts[0][k]: how many of the first d = k * block outputs come from a;
-// starts[1][k]: the rest, at most nb. One warp a boundary, a 33-ary search:
-// i counts while a[i] <= b[d - 1 - i] (a before b on ties), true then false
-// over the range, so each step the 32 lanes test 32 evenly spaced i at
-// once and the count of trues (a prefix of the lanes) keeps the part of
-// the range between the last true and the first false. NC as in
-// less_stacked.
+// starts[1][k]: the rest, at most nb. One warp a boundary (warp_corank).
 template <int NC>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 runmerge_starts_kernel(const uint32_t* __restrict__ cmp_a,
@@ -123,68 +69,12 @@ runmerge_starts_kernel(const uint32_t* __restrict__ cmp_a,
   const long long k = ((long long)blockIdx.x * SPLIT_THREADS + threadIdx.x) >> 5;
   if (k > nblocks) return;  // the whole warp
   const long long d = k * block;
-  long long hi = d < na ? d : na;
-  long long lo = d - nb > 0 ? d - nb : 0;
-  if (lo > hi) lo = hi;  // past the end: every a
-  while (lo < hi) {
-    const long long span = hi - lo;
-    const bool last = span <= 32;
-    // lane t's probe: lo + t in the last step, else the (t + 1)-th of 32
-    // points strictly inside the range
-    const long long m = last ? lo + lane : lo + (lane + 1) * span / 33;
-    const bool counts =
-        m < hi && !less_stacked<NC>(cmp_b, nb, d - 1 - m, cmp_a, na, m, n_cmp,
-                                    codes);
-    const int c = __popc(__ballot_sync(0xffffffffu, counts));
-    if (last) {
-      lo += c;
-      break;
-    }
-    const long long below = lo + (long long)c * span / 33;  // probe c - 1
-    const long long above = lo + (long long)(c + 1) * span / 33;  // probe c
-    if (c < 32) hi = above;
-    if (c > 0) lo = below + 1;
-  }
+  const long long lo =
+      warp_corank<NC>(cmp_a, na, na, cmp_b, nb, nb, d, n_cmp, codes);
   if (lane == 0) {
     const long long j = d - lo;
     starts[k] = (int)lo;
     starts[nblocks + 1 + k] = (int)(j < nb ? j : nb);
-  }
-}
-
-// key[p] < key[q] in the tile (lane-major keys, lane stride `block`)
-template <int NC>
-__device__ __forceinline__ bool tile_less(const uint32_t* key, int block,
-                                          int n_cmp, int p, int q) {
-  if constexpr (NC > 0) {
-    uint32_t x[NC], y[NC];
-#pragma unroll
-    for (int l = 0; l < NC; ++l) {
-      x[l] = key[l * block + p];
-      y[l] = key[l * block + q];
-    }
-    return lex_less<NC>(x, y);
-  } else {
-    for (int l = 0; l < n_cmp; ++l) {
-      uint32_t x = key[l * block + p], y = key[l * block + q];
-      if (x != y) return x < y;
-    }
-    return false;
-  }
-}
-
-// Stage `lanes` lanes of the block's segments into `dst` (lane-major, lane
-// stride `block`): a's [sa, sa + ca) at 0, b's [sb, sb + cb) after it.
-__device__ __forceinline__ void stage(uint32_t* dst, int block,
-                                      const uint32_t* a, const uint32_t* b,
-                                      int na, int nb, int sa, int ca, int sb,
-                                      int cb, int lanes) {
-  for (int p = threadIdx.x; p < ca + cb; p += blockDim.x) {
-    const bool from_a = p < ca;
-    const uint32_t* src = from_a ? a + sa + p : b + sb + (p - ca);
-    const size_t stride = from_a ? (size_t)na : (size_t)nb;
-    for (int l = 0; l < lanes; ++l)
-      cp_async4(dst + l * block + p, src + l * stride);
   }
 }
 
@@ -206,10 +96,10 @@ runmerge_kernel(const uint32_t* cmp_a, const uint32_t* cmp_b,
   const int ca = max(0, min(starts[k + 1] - sa, block));
   const int cb = max(0, min(starts[nblocks + 2 + k] - sb, block - ca));
   const int cnt = ca + cb;
-  stage(key, block, cmp_a, cmp_b, na, nb, sa, ca, sb, cb, n_cmp);
+  stage(key, block, cmp_a, na, cmp_b, nb, sa, ca, sb, cb, n_cmp);
   cp_async_commit();
   int lanes = min(group, n_arr);
-  stage(tile, block, data_a, data_b, na, nb, sa, ca, sb, cb, lanes);
+  stage(tile, block, data_a, na, data_b, nb, sa, ca, sb, cb, lanes);
   cp_async_commit();
   cp_async_wait<1>();  // this thread's keys have landed
   for (int p = tid; p < cnt; p += T)
@@ -222,15 +112,8 @@ runmerge_kernel(const uint32_t* cmp_a, const uint32_t* cmp_b,
   const int E = block / T;
   const int d = tid * E;
   if (d < cnt) {
-    int lo = max(0, d - cb), hi = min(d, ca);
-    while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (tile_less<NC>(key, block, n_cmp, ca + d - 1 - mid, mid))
-        hi = mid;
-      else
-        lo = mid + 1;
-    }
-    int i = lo, j = d - lo;
+    int i = tile_corank<NC>(key, block, n_cmp, 0, ca, ca, cb, d);
+    int j = d - i;
     for (int e = 0; e < E && d + e < cnt; ++e) {
       bool take_b =
           j < cb && (i >= ca || tile_less<NC>(key, block, n_cmp, ca + j, i));
@@ -246,8 +129,8 @@ runmerge_kernel(const uint32_t* cmp_a, const uint32_t* cmp_b,
     if (first > 0) {
       lanes = min(group, n_arr - first);
       __syncthreads();  // every read of the previous lanes is done
-      stage(tile, block, data_a + (size_t)first * na,
-            data_b + (size_t)first * nb, na, nb, sa, ca, sb, cb, lanes);
+      stage(tile, block, data_a + (size_t)first * na, na,
+            data_b + (size_t)first * nb, nb, sa, ca, sb, cb, lanes);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();

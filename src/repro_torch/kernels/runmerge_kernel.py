@@ -40,8 +40,7 @@ from .lex import F32, I32, U32, as_bits, codes_mask, dtype_code, from_bits, \
 __all__ = ["KERNEL", "SPLIT_KERNEL", "DEFAULT_MERGE_BLOCK", "MAX_CMP_LANES",
            "merge_path_starts", "merge_path_starts_plain", "merge_operands",
            "runmerge", "runmerge_plain", "merge_runs_lex_kernel",
-           "stack_lanes", "check_block", "check_runs", "cmp_codes",
-           "window_codes"]
+           "stack_lanes", "check_block", "check_runs", "cmp_codes"]
 
 KERNEL = Kernel("merge_runs_lex", "runmerge.cu", "runmerge_lex",
                 [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
@@ -55,8 +54,8 @@ SPLIT_KERNEL = Kernel("merge_path_starts", "runmerge.cu", "runmerge_starts",
 
 # one output block per CTA: the reference's tile
 DEFAULT_MERGE_BLOCK = 256
-# compare lanes a merge takes: with B6's index lane, 16 two-bit codes fill
-# the kernels' 32-bit codes argument
+# compare lanes a merge takes: 1-9 run an instance each, 10-15 one that
+# reads the count at run time; two-bit codes each in a 32-bit argument
 MAX_CMP_LANES = 15
 _INDEX_FILL = (1 << 31) - 1
 _DTYPES = {U32: torch.uint32, I32: torch.int32, F32: torch.float32}
@@ -92,12 +91,6 @@ def cmp_codes(cmp_lanes) -> list:
         raise ValueError(f"at most {MAX_CMP_LANES} compare lanes, got "
                          f"{len(codes)}")
     return codes
-
-
-def window_codes(cmp_lanes) -> list:
-    """The codes of a k-way window (B6): the compare lanes', then the index
-    lane's."""
-    return cmp_codes(cmp_lanes) + [I32]
 
 
 def _check_stacked(t: torch.Tensor, rows: int, what: str):

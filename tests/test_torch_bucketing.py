@@ -158,4 +158,5 @@ def test_cpu_path_launches_no_kernel():
     assert set(KERNELS) == {"oets_rows_lex", "bitonic_rows_lex",
                             "distribute_rows", "merge_adjacent_lex",
                             "merge_runs_lex", "merge_path_starts",
-                            "merge_runs_kway", "partition_rows"}
+                            "merge_runs_kway", "kway_split", "kway_gather",
+                            "partition_rows"}

@@ -217,6 +217,53 @@ def test_kway_kernel_matches_plain(cuda, kind, sizes):
     _same_bits(got, kway_kernel.merge_runs_kway_take(runs, n_cmp=n_cmp))
 
 
+@pytest.mark.parametrize("fill", adversarial.FILLS)
+@pytest.mark.parametrize("k", adversarial.KWAY_SWEEP)
+def test_kway_split_and_merge_kernels_match_plain(cuda, k, fill):
+    """The split's rounds, the gather and B6 on ``adversarial.kway_case``
+    runs: the cursors bit for bit those of the plain split and of the
+    oracle (``kway_cursors(kway_ranks(...))``), the gathered lanes the
+    plain concatenation's, the merge the plain merge tree's, at blocks 128
+    and 256."""
+    rng = np.random.default_rng([k, len(fill), 17])
+    n_cmp = 1 + k % 5
+    runs, codes = adversarial.kway_case(rng, n_cmp, fill, k, 90)
+    cpu = [tuple(torch.from_numpy(x) for x in r) for r in runs]
+    gpu = _to(cpu, cuda)
+    oracle_ranks = kway_kernel.kway_ranks([r[:n_cmp] for r in cpu])
+    for block in (128, 256):
+        before = kway_kernel.SPLIT_KERNEL.launches
+        cmp, data, cursors, _ = kway_kernel.kway_operands(gpu, n_cmp, None,
+                                                          block)
+        assert kway_kernel.SPLIT_KERNEL.launches == before + max(
+            1, (k - 1).bit_length())
+        p_cmp, p_data, p_cursors, _ = kway_kernel.kway_operands(cpu, n_cmp,
+                                                                None, block)
+        assert torch.equal(data.cpu(), p_data)
+        assert torch.equal(cursors.cpu(), p_cursors), block
+        assert torch.equal(cursors.cpu(), kway_kernel.kway_cursors(
+            oracle_ranks, block)), block
+        got = kway_kernel.kway_merge(cmp, data, cursors, codes, block)
+        assert torch.equal(got.cpu(), kway_kernel.kway_merge_plain(
+            p_cmp, p_data, p_cursors, codes, block)), block
+        starts = kway_kernel.kway_starts(cmp, [r[0].shape[0] for r in gpu],
+                                         codes, block)
+        assert torch.equal(starts, cursors)
+
+
+def test_kway_front_end_launches_on_57_runs(cuda):
+    """One ``merge_runs_kway_kernel`` call on 57 runs: one gather, the
+    split's ceil(log2 57) = 6 rounds, one merge."""
+    runs, n_cmp = _sorted_runs(5, (900,) * 56 + (130,), "u32")
+    runs = _to(runs, cuda)
+    kernels = (kway_kernel.GATHER_KERNEL, kway_kernel.SPLIT_KERNEL,
+               kway_kernel.KERNEL)
+    before = [k.launches for k in kernels]
+    kway_kernel.merge_runs_kway_kernel(runs, n_cmp=n_cmp)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 6, 1]
+
+
 def test_kway_kernel_refuses_more_runs_than_a_launch_takes(cuda):
     runs = [(torch.tensor([r], dtype=torch.int32, device=cuda),)
             for r in range(kway_kernel.MAX_RUNS + 1)]

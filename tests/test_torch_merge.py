@@ -26,8 +26,8 @@ from repro.kernels.runmerge_kernel import merge_runs_lex_pallas
 from repro.pipeline import merge_runs as ref_merge_runs
 from repro.pipeline.validate import check_lanes_sorted, order_bits_view
 from repro_torch.interop import to_device
-from repro_torch.kernels import keypack, kway_kernel, lex, ops, \
-    runmerge_kernel
+from repro_torch.kernels import adversarial, keypack, kway_kernel, lex, \
+    ops, runmerge_kernel
 from repro_torch.pipeline import merge_runs
 
 
@@ -279,6 +279,44 @@ def test_kway_kernel_refuses_more_runs_than_a_launch_takes():
     with pytest.raises(ValueError, match="at most"):
         kway_kernel.merge_runs_kway_kernel(runs)
     assert len(kway_kernel.merge_runs_kway_take(runs)[0]) == len(runs)
+
+
+@pytest.mark.parametrize("fill", adversarial.FILLS)
+@pytest.mark.parametrize("k", [2, 3, 8, 57])
+def test_kway_split_and_merge_tree_on_adversarial_runs(k, fill):
+    """``adversarial.kway_case`` runs (empty and one-element runs among
+    them, sentinel bits, four values, NaN payloads and ±0): the plain split
+    gives the oracle's cursors and the plain merge tree the take tier's
+    bits, at blocks 128 and 256."""
+    rng = np.random.default_rng([k, len(fill)])
+    runs, codes = adversarial.kway_case(rng, 3, fill, k, 300)
+    runs = [tuple(torch.from_numpy(x) for x in r) for r in runs]
+    for block in (128, 256):
+        cmp, data, cursors, got_codes = kway_kernel.kway_operands(
+            runs, n_cmp=3, block=block)
+        assert got_codes == codes
+        oracle = kway_kernel.kway_cursors(kway_kernel.kway_ranks(
+            [r[:3] for r in runs]), block)
+        assert torch.equal(cursors, oracle)
+        got = kway_kernel.kway_merge(cmp, data, cursors, codes, block)
+        want = kway_kernel.merge_runs_kway_take(runs, n_cmp=3)
+        _assert_bits(got, [lex.as_bits(w) for w in want])
+
+
+def test_kway_operands_gather_every_lane_once():
+    """The plain gather (a ``torch.cat`` a lane) holds the compare lanes
+    and the data lanes of each run at its base; with ``n_cmp`` the compare
+    lanes are the data's leading rows."""
+    runs = [_t(r) for r in _runs(14, (7, 1, 12), ("i32", "u32", "dup"))]
+    cmp, data, cursors, codes = kway_kernel.kway_operands(runs, n_cmp=2)
+    assert data.shape == (3, 20) and cmp.data_ptr() == data.data_ptr()
+    for lane in range(3):
+        assert torch.equal(data[lane], torch.cat(
+            [lex.as_bits(r[lane]) for r in runs]))
+    assert codes == [lex.I32, lex.U32]
+    packed = kway_kernel.kway_operands(runs)
+    assert torch.equal(packed[1], data)
+    assert packed[0].shape[1] == 20
 
 
 # --- B5 and the two-run front-end ---------------------------------------------
