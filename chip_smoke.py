@@ -48,6 +48,16 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      result must equal Python's shortlex ``sorted``, DS1's packed lanes must
      equal the plain path's on the CPU, and every kernel must have run on
      its path;
+  3b. fault tolerance — the same chunked sorts with a ``RunStore`` and a
+     ``SortSupervisor`` in a temporary directory (``phase_fault_tolerance``):
+     DS2 with a store, timed against none, and a resume that sorts no
+     chunk; a job failing every chunk sort from chunk 30 on and its
+     resume (27 chunk sorts); a damaged store (3 chunk sorts) and a flipped
+     bit caught by ``validate='full'``; a supervisor with no fault, timed
+     against none, and injected failures of ``ingest_chunk``,
+     ``streaming_combine`` and (tournament) ``merge_round``, each
+     recovered bit-identically; the million words with a store and its
+     resume; a ``ShardStore`` of the merged DS2 run;
   4. partition and the repaired sorts — ``partition_rows`` (B7) on DS2's
      first packed lane as (8, 28,750) with 7 and 127 splitters, on the
      million-word corpus's first lane as (64, 16,384) with 127, and on
@@ -129,6 +139,10 @@ DISTRIBUTE_SWEEP_N = (0, 1, 31, 32, 33, 1023, 1024, 1025, 4096, 65_537,
                       230_000, 1_048_577)
 SPLITTER_SWEEP = (0, 1, 2, 31, 32, 33, 127, 128, 1000)   # and MAX_SPLITTERS
 SPLITTER_SWEEP_COLS = (1, 3, 130, 16_385)
+# the chunks of the fault-tolerance phase: the reference's DEFAULT_CHUNK on
+# DS2 (57 runs) and the run tier's 16,384 on the million words (64 runs)
+FT_CHUNK = 4096
+FT_BIG_CHUNK = 16_384
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -1310,6 +1324,242 @@ def phase_run_tier(report, device, ds2_words, big_words):
               "shortlex oracle: equal")
 
 
+def wall(run, reps: int = 1):
+    """Median host seconds of ``reps`` calls of ``run()``, each ended by a
+    synchronize."""
+    import torch
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def dir_bytes(root) -> int:
+    return sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
+
+
+def phase_fault_tolerance(report, device, ds2_words, big_words):
+    """The fault-tolerant chunked sort through its entry points
+    (``store=``, ``supervisor=``), in a temporary directory, every result
+    checked against Python's shortlex order and every run's chunk sorts
+    counted by B3's launches (one a chunk sort): DS2 with a ``RunStore``
+    (timed against no store, its bytes on disk, one ``put``), a resume of
+    the full store (no chunk sort), a kill from chunk 30 on and its resume
+    (27 chunk sorts), a damaged store (a lost run, a half-written one, a
+    truncated file: 3 chunk sorts) and a flipped bit that
+    ``validate='full'`` must catch, a supervisor with no fault (timed
+    against none) and injected transient failures of each stage, the
+    million words with a store and its resume; then a ``ShardStore`` of
+    the merged DS2 run, gated by ``check_sharded`` and read back whole."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import to_numpy
+    from repro_torch.core import packing
+    from repro_torch.pipeline import (RunManifest, RunStore, ShardedRun,
+                                      ShardStore, SortedRun, ValidationError,
+                                      check_sharded, chunked_sort_packed,
+                                      chunked_sort_words, sorted_run)
+    from repro_torch.runtime import (RetryPolicy, SortSupervisor,
+                                     StageFailure, StageFailureInjector)
+    t_phase = time.perf_counter()
+    oracle = shortlex(ds2_words)
+    ds2_keys = packing.pack_words(ds2_words)
+    big_keys = packing.pack_words(big_words)
+    big_oracle = packing.pack_words(shortlex(big_words), width=16)
+    kway = ("merge_runs_kway", "kway_split", "kway_gather")
+    n_chunks = -(-len(ds2_words) // FT_CHUNK)
+
+    def drive(name, run, sorts, want=oracle, merge_kernels=kway):
+        """``run()`` once with the counters read around it; its output
+        must be ``want`` (words, or a run's packed keys) and its chunk
+        sorts ``sorts``."""
+        out, counts = launch_counts(run)
+        ok = (out == want if isinstance(want, list) else
+              np.array_equal(to_numpy(out.keys), want))
+        if not ok:
+            raise AssertionError(f"{name}: not the shortlex order")
+        if counts["distribute_rows"] != sorts:
+            raise AssertionError(f"{name}: {counts['distribute_rows']} "
+                                 f"chunk sorts, expected {sorts}")
+        for kname in merge_kernels:
+            if counts[kname] == 0:
+                raise AssertionError(f"{name}: {kname} never launched")
+        for kname, c in counts.items():
+            report.rows[kname]["launches"] += c
+        print(f"[fault] {name}: {sorts} chunk sorts, launches {counts}; "
+              "shortlex oracle: equal")
+        return out
+
+    def words(**kw):
+        return lambda: chunked_sort_words(ds2_words, chunk_size=FT_CHUNK,
+                                          device=device, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ds2")
+        # 1. a store: the first call writes every run
+        drive("DS2 chunked, k-way, store", words(store=RunStore(root)),
+              n_chunks)
+        if RunStore(root).completed() != list(range(n_chunks)):
+            raise AssertionError("the store does not hold every run")
+        t_plain, t_store = [], []
+        for i in range(3):        # in turns; each store call writes anew
+            t_plain.append(wall(words()))
+            t_store.append(wall(words(store=RunStore(
+                os.path.join(tmp, f"timed{i}")))))
+        chunk0 = sorted_run(ds2_keys[:FT_CHUNK], capacity=FT_CHUNK,
+                            device=device)
+        man0 = RunManifest.from_run(chunk0, 0)
+        copies, writes = [], []
+        for i in range(5):        # the two halves of a put, as ingest runs it
+            put_store = RunStore(os.path.join(tmp, f"put{i}"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            on_host = SortedRun(lengths=to_numpy(chunk0.lengths),
+                                keys=to_numpy(chunk0.keys),
+                                packed=tuple(to_numpy(chunk0.packed)))
+            t1 = time.perf_counter()
+            put_store.put(man0, on_host)
+            writes.append(time.perf_counter() - t1)
+            copies.append(t1 - t0)
+        print(f"[fault] DS2 chunked, k-way: whole call median "
+              f"{statistics.median(t_plain) * 1e3:.3f} ms without a store "
+              f"{[round(t * 1e3, 3) for t in t_plain]}, "
+              f"{statistics.median(t_store) * 1e3:.3f} ms with one "
+              f"{[round(t * 1e3, 3) for t in t_store]}; {n_chunks} runs, "
+              f"{dir_bytes(root)} B on disk; one put of a {FT_CHUNK}-word "
+              f"run from the card, medians over 5: the copy to the host "
+              f"{statistics.median(copies) * 1e3:.3f} ms "
+              f"{[round(t * 1e3, 3) for t in copies]}, the files "
+              f"{statistics.median(writes) * 1e3:.3f} ms "
+              f"{[round(t * 1e3, 3) for t in writes]}")
+        # 2. a resume of the full store sorts nothing
+        drive("DS2 resume of the full store", words(store=RunStore(root)), 0)
+        t_resume = wall(words(store=RunStore(root)), reps=3)
+        print(f"[fault] DS2 resume of the full store: median "
+              f"{t_resume * 1e3:.3f} ms over 3")
+        # 3. a job that dies at chunk 30, and its resume
+        kill = os.path.join(tmp, "kill")
+        sup = SortSupervisor(policy=RetryPolicy(max_retries=0),
+                             injector=StageFailureInjector(fail_at={
+                                 "ingest_chunk": set(range(30, n_chunks))}))
+        try:
+            words(store=RunStore(kill), supervisor=sup)()
+            raise AssertionError("the injected failure did not stop the job")
+        except StageFailure:
+            pass
+        if RunStore(kill).completed() != list(range(30)):
+            raise AssertionError("the killed job's store does not hold "
+                                 "exactly runs 0..29")
+        drive("DS2 resume after a kill at chunk 30",
+              words(store=RunStore(kill)), n_chunks - 30)
+        if RunStore(kill).completed() != list(range(n_chunks)):
+            raise AssertionError("the resume did not complete the store")
+        # 4. damage: a lost run, a half-written one, a truncated file
+        shutil.rmtree(os.path.join(root, "step_5"))
+        os.rename(os.path.join(root, "step_12"),
+                  os.path.join(root, ".tmp_12"))
+        victim = os.path.join(root, "step_20", "keys.npy")
+        with open(victim, "r+b") as f:
+            f.truncate(os.path.getsize(victim) // 2)
+        drive("DS2 resume of a damaged store", words(store=RunStore(root)),
+              3)
+        keys_file = os.path.join(root, "step_40", "keys.npy")
+        good = np.load(keys_file)
+        bad = good.copy()
+        bad[3, 0] ^= np.uint32(1 << 7)
+        np.save(keys_file, bad)
+        try:
+            words(store=RunStore(root), validate="full")()
+            raise AssertionError("a flipped bit in a stored run passed "
+                                 "validate='full'")
+        except ValidationError as e:
+            print(f"[fault] a flipped bit in run 40's keys.npy: "
+                  f"ValidationError ({e})")
+        np.save(keys_file, good)
+        # 5. the supervisor: no fault against none, then injected failures
+        t_none, t_sup = [], []
+        for _ in range(3):
+            t_none.append(wall(words()))
+            t_sup.append(wall(words(supervisor=SortSupervisor())))
+        print(f"[fault] DS2 chunked, k-way: whole call median "
+              f"{statistics.median(t_none) * 1e3:.3f} ms without a "
+              f"supervisor {[round(t * 1e3, 3) for t in t_none]}, "
+              f"{statistics.median(t_sup) * 1e3:.3f} ms with one and no "
+              f"fault {[round(t * 1e3, 3) for t in t_sup]}")
+        for engine, fail_at, kernels in (
+                ("auto", {"ingest_chunk": {0, 2}, "streaming_combine": {0}},
+                 kway),
+                ("tournament", {"merge_round": {1}},
+                 ("merge_runs_lex", "merge_path_starts"))):
+            sleeps = []
+            sup = SortSupervisor(injector=StageFailureInjector(
+                fail_at=fail_at), sleep=sleeps.append)
+            drive(f"DS2 chunked, {engine}, failures at {fail_at}",
+                  words(supervisor=sup, merge_engine=engine), n_chunks,
+                  merge_kernels=kernels)
+            want = [(stage, "retry") for stage in fail_at
+                    for _ in fail_at[stage]]
+            got = [(e.stage, e.action) for e in sup.events]
+            if got != want or sleeps:
+                raise AssertionError(f"supervisor events {got} (sleeps "
+                                     f"{sleeps}), expected {want}")
+        # 6. the million words with a store, and its resume
+        big = os.path.join(tmp, "big")
+
+        def big_run():
+            return chunked_sort_packed(big_keys, chunk_size=FT_BIG_CHUNK,
+                                       validate="full", store=RunStore(big),
+                                       device=device)
+
+        t0 = time.perf_counter()
+        drive("1M words chunked, validate=full, store", big_run,
+              -(-len(big_words) // FT_BIG_CHUNK), big_oracle)
+        t_big = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drive("1M words resume of the full store", big_run, 0, big_oracle)
+        t_big_resume = time.perf_counter() - t0
+        print(f"[fault] 1M words chunked, validate=full: first call with a "
+              f"store {t_big * 1e3:.3f} ms, {dir_bytes(big)} B on disk; "
+              f"full resume {t_big_resume * 1e3:.3f} ms (one call each, "
+              "counters read)")
+        # the shard store: the merged DS2 run (the packed front end resumes
+        # the words front end's store) cut into four destinations
+        merged = drive("DS2 packed, resume of the words' store",
+                       lambda: chunked_sort_packed(ds2_keys,
+                                                   chunk_size=FT_CHUNK,
+                                                   store=RunStore(root),
+                                                   device=device), 0,
+                       packing.pack_words(oracle))
+        shards = ShardStore(os.path.join(tmp, "shards"))
+        n = len(ds2_words)
+        cuts = [0, 1, n // 4, n // 4, n]
+        shard_mans = []
+        for dest, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
+            part = SortedRun(lengths=merged.lengths[lo:hi],
+                             keys=merged.keys[lo:hi])
+            shard_mans.append(RunManifest.from_run(part, dest))
+            shards.put(shard_mans[-1], part)
+        store = RunStore(root)
+        check_sharded([store.manifest(i) for i in store.completed()],
+                      shard_mans, mode="full")
+        whole = ShardedRun(store=shards, manifests=tuple(shard_mans)).to_run(
+            validate="full", device=device)
+        if not (torch.equal(whole.lengths, merged.lengths) and torch.equal(
+                whole.keys.view(torch.int32), merged.keys.view(torch.int32))):
+            raise AssertionError("ShardedRun.to_run differs from the run")
+        print("[fault] ShardStore of the merged DS2 run (4 destinations, "
+              "one empty): check_sharded('full') passed, to_run on the "
+              "card equal")
+    print(f"[fault] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 # --- phase 4 ----------------------------------------------------------------
 
 def quantiles(x, n_spl: int):
@@ -1569,6 +1819,7 @@ def main() -> int:
     phase_main_path(report, device, list(words.items()))
     big_words = synthetic_words(1_048_576, seed=0)
     phase_run_tier(report, device, words["DS2"], big_words)
+    phase_fault_tolerance(report, device, words["DS2"], big_words)
     phase_partition_and_repairs(report, device, words["DS2"], big_words)
     for name, row in report.rows.items():
         if row["launches"] == 0:

@@ -39,7 +39,7 @@ def to_device(x, device="cuda"):
     if isinstance(x, torch.Tensor):
         t = x
     else:
-        a = np.ascontiguousarray(x)
+        a = np.ascontiguousarray(x).reshape(np.shape(x))  # keeps 0-d
         if not a.flags.writeable:     # torch does not take read-only arrays
             a = a.copy()
         t = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)

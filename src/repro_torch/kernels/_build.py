@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SMEM_LIMIT = 232_448
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # every kernel of the package by name; each Kernel enters itself
 KERNELS: dict[str, "Kernel"] = {}
@@ -156,7 +157,8 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed: "
                                f"{self._err(rc).decode()} (error {rc})")
-        self.launches += 1
+        with _count_lock:     # a supervised stage may launch on a worker
+            self.launches += 1
 
 
 def check_stacked(x: torch.Tensor, codes: Sequence[int], what: str):

@@ -18,10 +18,19 @@ words front-end) and stages it while chunk ``i`` sorts. Staging
 (:func:`_stage_chunk`) copies the chunk into pinned host memory and starts
 a ``non_blocking`` upload on a side CUDA stream; the sorting stream waits on
 the upload's event and ``record_stream`` keeps the tensor alive there.
+
+Robustness, as in the reference: with a ``RunStore`` every sorted run is
+copied to the host and persisted before the next chunk sorts, and a chunk
+whose intact run is already stored (same count, same input digest — the
+digest of a host chunk is taken on the worker beside its staging) is loaded,
+not sorted; with a ``SortSupervisor`` each chunk sort runs as its
+``'ingest_chunk'`` stage and the merge as ``'streaming_combine'`` or
+``'merge_round'``.
 """
 
 from __future__ import annotations
 
+import logging
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -29,6 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..checkpoint.manager import CorruptSnapshotError
 from ..core import packing
 from ..core.bucketing import sorted_packed
 from ..interop import resolve_device, to_device
@@ -36,10 +46,12 @@ from ..kernels.keypack import (cmp_from_packed, packed_cmp_lanes,
                                shortlex_max_values)
 from .manifest import RunManifest
 from .merge import merge_runs
-from .validate import check_chunked, host
+from .validate import check_chunked, host, keys_digest
 
 __all__ = ["DEFAULT_CHUNK", "SortedRun", "sorted_run",
            "chunked_sort_packed", "chunked_sort_words"]
+
+log = logging.getLogger("repro_torch.pipeline")
 
 _VALIDATE_MODES = ("off", "cheap", "full")
 
@@ -90,17 +102,103 @@ def sorted_run(keys, algorithm: str = "pallas", capacity: int | None = None,
     return SortedRun(lengths=lengths, keys=sorted_keys, packed=packed)
 
 
-def _check_args(validate: str, chunk_size: int, store, supervisor):
+def _run_from_arrays(lengths, keys, packed, device="cuda") -> SortedRun:
+    """A :class:`SortedRun` on ``device`` from a stored run's fields (numpy
+    arrays or tensors, as ``RunStore.load`` gives them)."""
+    return SortedRun(
+        lengths=to_device(lengths, device), keys=to_device(keys, device),
+        packed=tuple(to_device(p, device) for p in packed) if packed
+        else None)
+
+
+def _resume_chunk(chunk, chunk_id: int, digest, store, device):
+    """The stored run of ``chunk`` and its manifest, or ``None`` where the
+    store holds no intact run of the same multiset (logged)."""
+    try:
+        man = store.manifest(chunk_id)
+    except CorruptSnapshotError as e:
+        log.warning("run store: chunk %d manifest unreadable (%s) — "
+                    "re-ingesting", chunk_id, e)
+        return None
+    if man is None:
+        return None
+    # A stored run matches iff it holds the same multiset as the incoming
+    # chunk — the digest is order-independent, so the *input* chunk digests
+    # straight against the *sorted* run's manifest. A mismatch means the
+    # store is stale (same path, different dataset): recompute instead of
+    # merging foreign data.
+    if man.count != int(chunk.shape[0]) or man.digest != (
+            keys_digest(chunk) if digest is None else digest):
+        log.warning("run store: chunk %d manifest does not match incoming "
+                    "data (stale store?) — re-ingesting", chunk_id)
+        return None
+    try:
+        loaded = _run_from_arrays(*store.load(chunk_id, device),
+                                  device=device)
+    except CorruptSnapshotError as e:
+        # torn/truncated artifact (kill mid-write never produces this — the
+        # rename is atomic — but disk damage can): the chunk is still in
+        # hand, so recompute, don't fail
+        log.warning("run store: chunk %d unreadable (%s) — re-ingesting",
+                    chunk_id, e)
+        return None
+    if int(loaded.lengths.shape[0]) != man.count:
+        log.warning("run store: chunk %d loaded %d row(s) but manifest "
+                    "records %d — re-ingesting", chunk_id,
+                    int(loaded.lengths.shape[0]), man.count)
+        return None
+    return loaded, man
+
+
+def _ingest_chunk(chunk, chunk_id: int, digest, *, algorithm: str, capacity,
+                  on_overflow: str, store, supervisor, need_manifest: bool,
+                  device):
+    """One ``(run, manifest)`` for a chunk on ``device`` — resumed from the
+    store when an intact matching run is persisted there, else sorted
+    (through the supervisor's ``ingest_chunk`` stage when one is given) and
+    persisted. ``digest``: the chunk's ``keys_digest`` where the caller
+    took it on the host, else ``None`` (taken here if a resume needs it)."""
+    if store is not None:
+        resumed = _resume_chunk(chunk, chunk_id, digest, store, device)
+        if resumed is not None:
+            return resumed
+
+    def launch():
+        return sorted_run(chunk, algorithm=algorithm, capacity=capacity,
+                          on_overflow=on_overflow, device=device)
+
+    if supervisor is not None:
+        run = supervisor.run_stage("ingest_chunk", launch)
+    else:
+        run = launch()
+    if store is None:
+        return run, (RunManifest.from_run(run, chunk_id) if need_manifest
+                     else None)
+    # one copy to the host serves the manifest and the store; put returns
+    # only once the run has landed, so it survives a kill from here on
+    on_host = SortedRun(lengths=host(run.lengths), keys=host(run.keys),
+                        packed=None if run.packed is None
+                        else tuple(host(p) for p in run.packed))
+    man = RunManifest.from_run(on_host, chunk_id)
+    store.put(man, on_host)
+    return run, man
+
+
+def _merged_run(runs, manifests=None, supervisor=None,
+                merge_engine: str = "auto") -> SortedRun:
+    if len(runs) == 1:
+        return runs[0]
+    return SortedRun.from_lanes(merge_runs(
+        [r.lanes() for r in runs], engine=merge_engine,
+        cmp_runs=[r.cmp_lanes() for r in runs], manifests=manifests,
+        supervisor=supervisor))
+
+
+def _check_args(validate: str, chunk_size: int):
     if validate not in _VALIDATE_MODES:
         raise ValueError(f"validate must be one of {_VALIDATE_MODES}")
     if chunk_size < 1:
         raise ValueError("chunk_size must be >= 1")
-    if store is not None:
-        raise NotImplementedError("the resumable run store is not ported "
-                                  "yet (ROADMAP A8)")
-    if supervisor is not None:
-        raise NotImplementedError("the sort supervisor is not ported yet "
-                                  "(ROADMAP A10)")
 
 
 def _stage_chunk(chunk: np.ndarray, device: torch.device, stream):
@@ -129,6 +227,22 @@ def _take_chunk(staged, device: torch.device) -> torch.Tensor:
     return bits.view(torch.uint32)
 
 
+def _staged_chunks(pack, items, digest: bool, device: torch.device):
+    """``(device tensor, digest or None)`` for each item: on the prefetch
+    worker, ``pack(item)`` gives the chunk's packed host rows, which are
+    digested (where ``digest``) and staged, while the previous chunk
+    sorts."""
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def stage(item):
+        rows = pack(item)
+        return (_stage_chunk(rows, device, stream),
+                keys_digest(rows) if digest else None)
+
+    return ((_take_chunk(staged, device), d)
+            for staged, d in _prefetch_map(stage, items))
+
+
 def _prefetch_map(fn, items):
     """Yield ``fn(item)`` in order, computing the *next* call on a worker
     thread while the consumer processes the current result."""
@@ -145,23 +259,21 @@ def _prefetch_map(fn, items):
 
 
 def _sort_chunks(chunks, *, algorithm, capacity, on_overflow, validate,
-                 merge_engine, device) -> SortedRun:
-    """Sort every chunk (device tensors) into a run, merge the runs, and
-    run the validation gate."""
+                 merge_engine, store, supervisor, device) -> SortedRun:
+    """Sort (or resume) every chunk — ``(device tensor, digest or None)``
+    pairs — into a run, merge the runs, and run the validation gate."""
     runs, manifests = [], []
-    for ci, keys in enumerate(chunks):
+    for ci, (keys, digest) in enumerate(chunks):
         cap = capacity if capacity is not None else int(keys.shape[0])
-        run = sorted_run(keys, algorithm=algorithm, capacity=cap,
-                         on_overflow=on_overflow, device=device)
+        run, man = _ingest_chunk(
+            keys, ci, digest, algorithm=algorithm, capacity=cap,
+            on_overflow=on_overflow, store=store, supervisor=supervisor,
+            need_manifest=validate != "off", device=device)
         runs.append(run)
-        if validate != "off":
-            manifests.append(RunManifest.from_run(run, ci))
-    merged = runs[0]
-    if len(runs) > 1:
-        merged = SortedRun.from_lanes(merge_runs(
-            [r.lanes() for r in runs], engine=merge_engine,
-            cmp_runs=[r.cmp_lanes() for r in runs],
-            manifests=manifests or None))
+        manifests.append(man)
+    track = store is not None or validate != "off"
+    merged = _merged_run(runs, manifests=manifests if track else None,
+                         supervisor=supervisor, merge_engine=merge_engine)
     if validate != "off":
         check_chunked(runs, manifests, merged, mode=validate)
     return merged
@@ -186,31 +298,46 @@ def chunked_sort_packed(keys, chunk_size: int = DEFAULT_CHUNK,
     'full' adds content digests). ``on_overflow``: the bucket-overflow
     policy of each chunk's sort. ``merge_engine``: 'auto'/'kway' (one
     k-way pass), 'kway_kernel' (the k-way kernel forced) or 'tournament'
-    (pairwise rounds) — see ``pipeline.merge.merge_runs``. ``store`` and
-    ``supervisor`` keep the reference's signature; the run store (ROADMAP
-    A8) and the supervisor (A10) are not ported yet and raise.
+    (pairwise rounds) — see ``pipeline.merge.merge_runs``.
+
+    Robustness, as the reference's:
+
+    * ``store`` — a :class:`~repro_torch.pipeline.manifest.RunStore`. Every
+      sorted run is persisted (copied to the host, written atomically)
+      before the next chunk sorts, and chunks whose intact runs are already
+      stored are *loaded, not re-sorted* — a killed job resumes from its
+      completed runs. A store the reference wrote resumes here, and the
+      reverse.
+    * ``supervisor`` — a ``runtime.SortSupervisor``; chunk sorts run as its
+      ``ingest_chunk`` stage and the merge as ``streaming_combine`` (k-way)
+      or one ``merge_round`` a tournament round, with bounded retry on
+      transient ``StageFailure``.
 
     Host (numpy) input stays on the host until its chunk is staged, chunk
-    ``i+1``'s upload overlapping chunk ``i``'s sort."""
-    _check_args(validate, chunk_size, store, supervisor)
+    ``i+1``'s upload (and, with a store, its digest) overlapping chunk
+    ``i``'s sort; a tensor already on ``device`` is digested, where a
+    resume needs it, through one copy back."""
+    _check_args(validate, chunk_size)
     device = resolve_device(device)
     if isinstance(keys, torch.Tensor) and keys.device.type == device.type:
         n = keys.shape[0]
-        chunks = (keys[s:s + chunk_size] for s in range(0, n, chunk_size))
+        chunks = ((keys[s:s + chunk_size], None)
+                  for s in range(0, n, chunk_size))
     else:
         keys = host(keys).astype(np.uint32, copy=False)
         n = keys.shape[0]
-        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        chunks = (_take_chunk(staged, device) for staged in _prefetch_map(
-            lambda c: _stage_chunk(c, device, stream),
-            [keys[s:s + chunk_size] for s in range(0, n, chunk_size)]))
+        chunks = _staged_chunks(
+            lambda c: c, [keys[s:s + chunk_size]
+                          for s in range(0, n, chunk_size)],
+            store is not None, device)
     if n == 0:
         return SortedRun(lengths=torch.zeros(0, dtype=torch.int32,
                                              device=device),
                          keys=to_device(keys, device))
     return _sort_chunks(chunks, algorithm=algorithm, capacity=capacity,
                         on_overflow=on_overflow, validate=validate,
-                        merge_engine=merge_engine, device=device)
+                        merge_engine=merge_engine, store=store,
+                        supervisor=supervisor, device=device)
 
 
 def chunked_sort_words(words, chunk_size: int = DEFAULT_CHUNK,
@@ -226,18 +353,18 @@ def chunked_sort_words(words, chunk_size: int = DEFAULT_CHUNK,
     the worker thread while the previous chunk sorts; the merged run is
     unpacked once. Returns the words in shortlex order; the arguments are
     :func:`chunked_sort_packed`'s."""
-    _check_args(validate, chunk_size, store, supervisor)
+    _check_args(validate, chunk_size)
     device = resolve_device(device)
     words = list(words)
     if not words:
         return []
     width = max(packing.byte_length(w) for w in words)
-    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    chunks = (_take_chunk(staged, device) for staged in _prefetch_map(
-        lambda ws: _stage_chunk(packing.pack_words(ws, width=width), device,
-                                stream),
-        [words[i:i + chunk_size] for i in range(0, len(words), chunk_size)]))
+    chunks = _staged_chunks(
+        lambda ws: packing.pack_words(ws, width=width),
+        [words[i:i + chunk_size] for i in range(0, len(words), chunk_size)],
+        store is not None, device)
     run = _sort_chunks(chunks, algorithm=algorithm, capacity=capacity,
                        on_overflow=on_overflow, validate=validate,
-                       merge_engine=merge_engine, device=device)
+                       merge_engine=merge_engine, store=store,
+                       supervisor=supervisor, device=device)
     return packing.unpack_words(host(run.keys))

@@ -56,14 +56,14 @@ def merge_runs(runs, engine: str = "auto", max_values=None, cmp_runs=None,
     pre-packed compare lanes (``SortedRun.cmp_lanes()``); ``None`` packs
     them here with ``max_values``. ``manifests``: per run, a
     ``RunManifest``-like whose count each run must match before any device
-    work (:class:`ValidationError` otherwise). ``supervisor`` is not ported
-    yet (ROADMAP A10) and raises. ``block_size``: the kernels' output
+    work (:class:`ValidationError` otherwise). ``supervisor``: a
+    ``runtime.SortSupervisor``; the k-way pass runs as its
+    ``'streaming_combine'`` stage and each tournament round as a
+    ``'merge_round'`` stage — both pure functions of their input runs, so
+    a failed stage simply re-executes. ``block_size``: the kernels' output
     block."""
     if engine not in _ENGINES:
         raise ValueError(f"unknown merge_runs engine {engine!r}")
-    if supervisor is not None:
-        raise NotImplementedError("merge_runs: the supervisor is not ported "
-                                  "yet (ROADMAP A10)")
     runs = [tuple(r) for r in runs]
     if manifests is not None:
         if len(manifests) != len(runs):
@@ -86,16 +86,28 @@ def merge_runs(runs, engine: str = "auto", max_values=None, cmp_runs=None,
     n_cmp = len(ext[0]) - arity
 
     if engine != "tournament":
-        merged = merge_runs_lex(
-            ext, engine="kernel" if engine == "kway_kernel" else "auto",
-            n_cmp=n_cmp, block_size=block_size)
+        def combine(ext_rs):
+            return merge_runs_lex(
+                ext_rs, engine="kernel" if engine == "kway_kernel" else "auto",
+                n_cmp=n_cmp, block_size=block_size)
+
+        if supervisor is None:
+            merged = combine(ext)
+        else:
+            merged = supervisor.run_stage("streaming_combine", combine, ext)
         return tuple(merged[n_cmp:])
 
-    while len(ext) > 1:
-        nxt = [merge_sorted_lex(ext[i], ext[i + 1], n_cmp=n_cmp,
+    def one_round(ext_rs):
+        nxt = [merge_sorted_lex(ext_rs[i], ext_rs[i + 1], n_cmp=n_cmp,
                                 block_size=block_size)
-               for i in range(0, len(ext) - 1, 2)]
-        if len(ext) % 2:
-            nxt.append(ext[-1])
-        ext = nxt
+               for i in range(0, len(ext_rs) - 1, 2)]
+        if len(ext_rs) % 2:
+            nxt.append(ext_rs[-1])
+        return nxt
+
+    while len(ext) > 1:
+        if supervisor is None:
+            ext = one_round(ext)
+        else:
+            ext = supervisor.run_stage("merge_round", one_round, ext)
     return tuple(ext[0][n_cmp:])

@@ -1,7 +1,6 @@
 """Invariant-validation gate for the sort engine — a copy of
 ``repro.pipeline.validate`` that also takes torch tensors (copied to the
-host, bits unchanged, through ``interop.to_numpy``); ``check_sharded`` waits
-for the shard store (ROADMAP A8). Cheap host-side checks
+host, bits unchanged, through ``interop.to_numpy``). Cheap host-side checks
 that catch silent corruption (a flipped element, a dropped run, a
 double-counted bucket) before it propagates into downstream consumers.
 
@@ -46,7 +45,7 @@ from ..interop import to_numpy
 
 __all__ = ["ValidationError", "order_bits_view", "multiset_digest",
            "keys_digest", "length_histogram_of", "check_lanes_sorted",
-           "check_multiset", "check_run", "check_chunked"]
+           "check_multiset", "check_run", "check_chunked", "check_sharded"]
 
 _U64 = np.uint64
 _FNV_PRIME = _U64(0x100000001B3)
@@ -236,3 +235,62 @@ def check_chunked(runs, manifests, merged, mode: str = "cheap"):
             raise ValidationError(
                 "merged output content digest mismatch — elements were "
                 "altered across the merge")
+
+
+def check_sharded(run_manifests, shard_manifests, mode: str = "cheap"):
+    """Metadata-only gate for a shard-spilled distributed sort: prove the
+    shards jointly ARE the sorted union of the ingest runs without
+    rescanning any data. Checks (all on manifests):
+
+      * **count conservation** — sum of shard counts == sum of run counts;
+      * **histogram conservation** — per-length counts reconcile the same
+        way (structure-aware: a swap between length buckets that preserves
+        the total still fails);
+      * **boundary ordering** — shard *i*'s max key tuple lex<= shard
+        *i+1*'s min key tuple (shards are keyed by destination order, so
+        their concatenation is globally sorted iff each is internally
+        sorted — which :func:`check_run` proves per shard — and the
+        boundaries are ordered);
+      * (mode ``'full'``) **digest conservation** — shard digests sum mod
+        2^64 to the run digests' sum (the additive multiset property: the
+        union's digest is the sum, no rescan needed).
+
+    ``shard_manifests`` come ordered by destination. Raises
+    :class:`ValidationError` naming the first violated invariant."""
+    shard_manifests = list(shard_manifests)
+    run_manifests = list(run_manifests)
+    total_runs = sum(m.count for m in run_manifests)
+    total_shards = sum(m.count for m in shard_manifests)
+    if total_shards != total_runs:
+        raise ValidationError(
+            f"shard combine lost or duplicated elements: shard counts sum "
+            f"to {total_shards} != run counts sum {total_runs}")
+    nb = max((len(m.length_histogram)
+              for m in run_manifests + shard_manifests), default=1)
+    want = np.zeros(nb, np.int64)
+    got = np.zeros(nb, np.int64)
+    for m in run_manifests:
+        want[: len(m.length_histogram)] += np.asarray(m.length_histogram,
+                                                      np.int64)
+    for m in shard_manifests:
+        got[: len(m.length_histogram)] += np.asarray(m.length_histogram,
+                                                     np.int64)
+    if got.tolist() != want.tolist():
+        raise ValidationError(
+            f"shard length histogram mismatch: {got.tolist()} != "
+            f"{want.tolist()}")
+    occupied = [m for m in shard_manifests if m.count]
+    for a, b in zip(occupied, occupied[1:]):
+        if tuple(a.max_key) > tuple(b.min_key):
+            raise ValidationError(
+                f"shard boundary disorder: shard {a.chunk_id} max key "
+                f"{a.max_key} > shard {b.chunk_id} min key {b.min_key}")
+    if mode == "full":
+        want_digest = sum(m.digest for m in run_manifests) % (1 << 64)
+        got_digest = sum(m.digest for m in shard_manifests) % (1 << 64)
+        if got_digest != want_digest:
+            raise ValidationError(
+                "shard content digest mismatch: shard digests sum to "
+                f"{got_digest:#018x} != run digests sum "
+                f"{want_digest:#018x} — elements were altered across the "
+                "combine")

@@ -1,5 +1,31 @@
-"""Runtime failure types of the port."""
+"""Runtime concerns of the port, testable on one host — the counterpart of
+``repro.runtime``: elastic failure recovery, straggler detection, simulated
+failure injection, and the sort pipeline's stage-level fault supervision
+(``sortfault``). The chaos soak (``repro.runtime.chaos``) drives the mesh
+tier's chunked sort and waits for it (ROADMAP A9)."""
 
-from .failure import CapacityOverflow
+from .failure import (CapacityOverflow, DeviceFailure, ElasticSupervisor,
+                      FailureInjector)
+from .straggler import StragglerMonitor
 
-__all__ = ["CapacityOverflow"]
+__all__ = ["DeviceFailure", "CapacityOverflow", "ElasticSupervisor",
+           "FailureInjector", "StragglerMonitor",
+           "StageFailure", "StageTimeout", "ProcessKilled",
+           "SpeculationMismatch", "StageFailureInjector", "RetryPolicy",
+           "StageEvent", "SpeculationPolicy", "SortSupervisor"]
+
+# ``sortfault``'s supervisor drives the device pipeline; expose it lazily
+# (PEP 562, the reference's idiom) so ``kernels``/``core`` can import the
+# failure types above without re-entering this package mid-initialisation.
+_LAZY = {"StageFailure": "sortfault", "StageTimeout": "sortfault",
+         "ProcessKilled": "sortfault", "SpeculationMismatch": "sortfault",
+         "StageFailureInjector": "sortfault", "RetryPolicy": "sortfault",
+         "StageEvent": "sortfault", "SpeculationPolicy": "sortfault",
+         "SortSupervisor": "sortfault"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        from importlib import import_module
+        return getattr(import_module(f".{_LAZY[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -19,7 +19,9 @@ from repro_torch.kernels import (adversarial, bitonic_kernel,
                                  partition_kernel, runmerge_kernel)
 from repro_torch.kernels._build import SMEM_LIMIT
 from repro_torch.kernels.keypack import packed_cmp_lanes
-from repro_torch.pipeline import chunked_sort_words, merge_runs
+from repro_torch.pipeline import RunStore, chunked_sort_words, merge_runs
+from repro_torch.runtime import (RetryPolicy, SortSupervisor, StageFailure,
+                                 StageFailureInjector)
 from repro_torch.pipeline.validate import order_bits_view
 
 pytestmark = pytest.mark.gpu
@@ -307,6 +309,104 @@ def test_chunked_sort_on_the_card_launches_its_merge_kernel(cuda, engine,
                              merge_engine=engine, device=cuda)
     assert kernel.launches > 0
     assert got == sorted(words, key=lambda w: (len(w.encode()), w.encode()))
+
+
+def _shortlex(words):
+    return sorted(words, key=lambda w: (len(w.encode()), w.encode()))
+
+
+@pytest.fixture
+def warm(cuda):
+    """The kernels built and loaded before a timed or supervised run: a
+    first build holds the build lock for as long as ``nvcc`` takes."""
+    chunked_sort_words(synthetic_words(3000, seed=1), chunk_size=1024,
+                       merge_engine="tournament", device=cuda)
+    chunked_sort_words(synthetic_words(3000, seed=1), chunk_size=1024,
+                       device=cuda)
+    return cuda
+
+
+def test_chunked_sort_resumes_after_a_kill_on_the_card(warm, tmp_path):
+    """DS2 at chunk 4096 (57 runs) with a store: a job that fails every
+    chunk sort from chunk 30 on dies holding runs 0..29; the resume sorts
+    exactly the 27 it lacks, and a second resume sorts none."""
+    from repro_torch.configs import DS2
+    words = synthetic_words(DS2.n_words, seed=0)
+    want = _shortlex(words)
+    store = RunStore(str(tmp_path))
+    sup = SortSupervisor(policy=RetryPolicy(max_retries=0),
+                         injector=StageFailureInjector(
+                             fail_at={"ingest_chunk": set(range(30, 57))}))
+    with pytest.raises(StageFailure):
+        chunked_sort_words(words, store=store, supervisor=sup, device=warm)
+    assert store.completed() == list(range(30))
+    for resorted in (27, 0):
+        distribute_kernel.KERNEL.launches = 0
+        got = chunked_sort_words(words, store=RunStore(str(tmp_path)),
+                                 validate="full", device=warm)
+        assert distribute_kernel.KERNEL.launches == resorted
+        assert got == want
+    assert store.completed() == list(range(57))
+
+
+def test_chunk_sort_failure_recovered_on_the_card_with_a_deadline(warm):
+    """A deadline runs each chunk sort on a worker thread, which must
+    launch on the caller's stream (here not the default one); an injected
+    failure of chunk 2's sort is retried, and the merge too."""
+    words = synthetic_words(20_000, seed=5)
+    inj = StageFailureInjector(fail_at={"ingest_chunk": {2},
+                                        "streaming_combine": {0}})
+    sup = SortSupervisor(injector=inj,
+                         deadlines={"ingest_chunk": 60.0,
+                                    "streaming_combine": 60.0})
+    side = torch.cuda.Stream(warm)
+    distribute_kernel.KERNEL.launches = 0
+    with torch.cuda.stream(side):
+        got = chunked_sort_words(words, chunk_size=4096, validate="full",
+                                 supervisor=sup, device=warm)
+    assert got == _shortlex(words)
+    assert distribute_kernel.KERNEL.launches == 5
+    assert [(e.stage, e.action) for e in sup.events] == \
+        [("ingest_chunk", "retry"), ("streaming_combine", "retry")]
+
+
+def test_supervised_stage_on_a_worker_takes_the_callers_stream(cuda):
+    side = torch.cuda.Stream(cuda)
+    sup = SortSupervisor(deadlines={"ingest_chunk": 30.0})
+    with torch.cuda.stream(side):
+        seen = sup.run_stage("ingest_chunk", torch.cuda.current_stream)
+    assert seen == side
+    assert torch.cuda.current_stream() != side
+
+
+def test_launch_counter_loses_no_update_across_threads(cuda):
+    """Supervised stages may launch from worker threads: 16 threads, a
+    switch interval of a microsecond, 100 launches each — the counter
+    counts every one."""
+    import sys
+    import threading
+    keys = torch.zeros((64, 1), dtype=torch.int32, device=cuda)
+    distribute_kernel.distribute_rows(keys)
+    kernel = distribute_kernel.KERNEL
+    before = kernel.launches
+
+    def launch():
+        for _ in range(100):
+            distribute_kernel.distribute_rows(keys)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1600
 
 
 def _partition_case(kind):

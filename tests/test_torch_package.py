@@ -54,7 +54,13 @@ def test_importing_the_port_loads_no_jax():
                 "repro_torch.kernels.kway_kernel, repro_torch.pipeline, "
                 "repro_torch.pipeline.ingest, repro_torch.pipeline.merge, "
                 "repro_torch.pipeline.manifest, "
-                "repro_torch.pipeline.validate; "
+                "repro_torch.pipeline.validate, "
+                "repro_torch.pipeline.histogram, "
+                "repro_torch.pipeline.shards, repro_torch.checkpoint, "
+                "repro_torch.checkpoint.manager, "
+                "repro_torch.runtime.failure, "
+                "repro_torch.runtime.straggler, "
+                "repro_torch.runtime.sortfault; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'repro')]; print(bad); "
                 "sys.exit(1 if bad else 0)"])

@@ -8,6 +8,8 @@ The reference runs its chunked sort with ``merge_engine='kway'`` and
 not minutes); a shortlex sort of words has one answer, so the merged
 lengths and keys must agree bit for bit whatever the engines."""
 
+import tempfile
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,13 +25,14 @@ from repro.pipeline.manifest import RunManifest as RefManifest
 from repro_torch.data import synthetic_words
 from repro_torch.interop import run_to_device, run_to_numpy, to_numpy
 from repro_torch.kernels import KERNELS
-from repro_torch.pipeline import (RunManifest, SortedRun, ValidationError,
-                                  check_chunked, chunked_sort_packed,
-                                  chunked_sort_words, merge_runs, merge_two,
-                                  sorted_run)
+from repro_torch.pipeline import (RunManifest, RunStore, SortedRun,
+                                  ValidationError, check_chunked,
+                                  chunked_sort_packed, chunked_sort_words,
+                                  merge_runs, merge_two, sorted_run)
 from repro_torch.pipeline import validate as tval
 from repro_torch.pipeline.ingest import _prefetch_map
-from repro_torch.runtime import CapacityOverflow
+from repro_torch.runtime import (CapacityOverflow, SortSupervisor,
+                                 StageFailureInjector)
 
 _ENGINES = ("auto", "kway", "kway_kernel", "tournament")
 _CASES = {"synthetic-3000": (lambda: synthetic_words(3000, seed=3), 256),
@@ -119,11 +122,20 @@ def test_chunked_edge_cases():
     for bad in (dict(validate="most"), dict(chunk_size=0)):
         with pytest.raises(ValueError):
             chunked_sort_words(["a"], device="cpu", **bad)
-    with pytest.raises(NotImplementedError, match="A8"):
-        chunked_sort_words(["a"], store=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        chunked_sort_packed(np.ones((1, 1), np.uint32),
-                            supervisor=object(), device="cpu")
+    # the robustness arguments work at the edges too: one word, one chunk
+    with tempfile.TemporaryDirectory() as d:
+        store = RunStore(d)
+        assert chunked_sort_words(["b", "a"], chunk_size=1, store=store,
+                                  device="cpu") == ["a", "b"]
+        assert store.completed() == [0, 1]
+        assert chunked_sort_words(["b", "a"], chunk_size=1, store=store,
+                                  device="cpu") == ["a", "b"]
+    sup = SortSupervisor(injector=StageFailureInjector(
+        fail_at={"ingest_chunk": {0}}))
+    one = chunked_sort_packed(np.ones((1, 1), np.uint32), supervisor=sup,
+                              device="cpu")
+    assert one.lengths.tolist() == [4]
+    assert [e.action for e in sup.events] == ["retry"]
 
 
 @pytest.mark.parametrize("policy", ["raise", "retry", "clip"])
@@ -177,8 +189,11 @@ def test_merge_runs_reconciles_manifests_and_trivial_inputs():
         merge_runs([short, lanes[1]], manifests=mans)
     with pytest.raises(ValueError, match="engine"):
         merge_runs(lanes, engine="bogus")
-    with pytest.raises(NotImplementedError, match="A10"):
-        merge_runs(lanes, supervisor=object())
+    sup = SortSupervisor(injector=StageFailureInjector(
+        fail_at={"streaming_combine": {0}}))
+    for g, w in zip(merge_runs(lanes, supervisor=sup), merge_runs(lanes)):
+        assert torch.equal(g, w)
+    assert [e.stage for e in sup.events] == ["streaming_combine"]
     assert merge_runs([]) == ()
     assert merge_runs(lanes[:1]) == lanes[0]
     merged = merge_two(lanes[0], lanes[1])
