@@ -60,6 +60,13 @@ with each merge engine (device busy time, idle share, device events):
 
     python3 chip_profile.py runtier
 
+With the argument ``mesh`` it prints only the traces of DS2 through the
+mesh tier's chunked sort at 8 destinations of this card
+(``distributed_chunked_sort_lex``), with each combine engine (device busy
+time, idle share, device events):
+
+    python3 chip_profile.py mesh
+
 With the argument ``e2e`` it runs only the end-to-end phase of
 ``chip_smoke.py`` (phase 3: the main path on the 500- and 3,000-word
 chunks, DS1 and DS2, then the run tier's chunked sorts), whose lines give
@@ -499,6 +506,20 @@ def profile_run_tier(words, device):
         trace(f"DS2 chunked, merge_engine={engine}", call, 1)
 
 
+def profile_mesh(words, device, dests=8):
+    """A trace of one ``distributed_chunked_sort_lex`` of ``words`` at
+    ``dests`` destinations of this card, with each combine engine."""
+    from repro_torch.core import packing
+    from repro_torch.core.distributed import distributed_chunked_sort_lex
+    keys = packing.pack_words(words)
+    for engine in ("auto", "tournament"):
+        def call():
+            distributed_chunked_sort_lex(keys, devices=[device] * dests,
+                                         merge_engine=engine)
+        call()
+        trace(f"DS2 at {dests} destinations, merge_engine={engine}", call, 1)
+
+
 def profile(name, words, device):
     import torch
     from repro_torch import sorted_packed, to_numpy
@@ -549,6 +570,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["runtier"]:
         profile_run_tier(synthetic_words(DS2.n_words, seed=DS2.seed), device)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:] == ["mesh"]:
+        profile_mesh(synthetic_words(DS2.n_words, seed=DS2.seed), device)
         print(nvidia_smi())
         return 0
     if sys.argv[1:] == ["e2e"]:

@@ -89,6 +89,7 @@ when there is no card or any check fails.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -143,6 +144,12 @@ SPLITTER_SWEEP_COLS = (1, 3, 130, 16_385)
 # DS2 (57 runs) and the run tier's 16,384 on the million words (64 runs)
 FT_CHUNK = 4096
 FT_BIG_CHUNK = 16_384
+# phase 5: the mesh chunked sort's destinations on this card, the gloo
+# ranks of the engine run, the chaos soak's seeds, the engine inputs' seed
+MESH_DESTS = 8
+MESH_RANKS = 4
+MESH_SOAK_SEEDS = 25
+MESH_SEED = 11
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -1794,8 +1801,361 @@ def phase_partition_and_repairs(report, device, ds2_words, big_words):
     print(f"[partition] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 5 ----------------------------------------------------------------
+
+def mesh_engine_inputs(workdir):
+    """The engine runs' inputs, ``(name, lanes)``: DS2's shortlex tuple
+    (length, 4 key lanes, an iota payload), read from ``ds2_tuple.npz`` in
+    ``workdir``; 8 x 4096 int32 keys; and 10,001 int32 keys (not divisible
+    by the ranks)."""
+    import numpy as np
+    rng = np.random.default_rng(MESH_SEED)
+    ds2 = np.load(Path(workdir) / "ds2_tuple.npz")
+    return [("DS2 shortlex tuple", [ds2[f"lane{i}"]
+                                    for i in range(len(ds2.files))]),
+            ("8 x 4096 int32", [rng.integers(-10**6, 10**6, 8 * 4096)
+                                .astype(np.int32)]),
+            ("10,001 int32", [rng.integers(0, 50, 10_001).astype(np.int32)])]
+
+
+def ds2_tuple(ds2_words):
+    """DS2's shortlex tuple as numpy lanes: byte lengths (int32), the 4
+    packed key lanes (uint32) and an iota payload (uint32)."""
+    import numpy as np
+    from repro_torch.core import packing
+    keys = packing.pack_words(ds2_words)
+    lengths = np.asarray([len(w.encode()) for w in ds2_words], np.int32)
+    return ([lengths] + [np.ascontiguousarray(keys[:, l])
+                         for l in range(keys.shape[1])]
+            + [np.arange(len(ds2_words), dtype=np.uint32)])
+
+
+def check_engine_output(name, lanes, out):
+    """``out`` must be ``lanes`` lex-sorted (lane 0 most significant): the
+    whole tuple is distinct or integer, so the order is unique."""
+    import numpy as np
+    from repro_torch import to_numpy
+    order = np.lexsort(tuple(reversed(lanes)))
+    for i, (got, lane) in enumerate(zip(out, lanes)):
+        if not np.array_equal(to_numpy(got), lane[order]):
+            raise AssertionError(f"{name}: lane {i} is not the lex order")
+
+
+MESH_ENGINES = (("odd_even", "bitonic"), ("odd_even", "take"),
+                ("odd_even", "resort"), ("sample", "bitonic"))
+
+
+def mesh_rank(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase 5's engine run: joins a gloo group of ``world``
+    processes on ``cuda:0`` (its collectives staged through the host), runs
+    both engines and every odd-even merge on each input of
+    :func:`mesh_engine_inputs`, checks its own output, and prints its
+    kernel launches and its times."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import distributed_sort_lex
+    from repro_torch.parallel import make_mesh
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((world,), ("data",), "cpu")
+        times = {}
+        for name, lanes in mesh_engine_inputs(workdir):
+            for engine, merge in MESH_ENGINES:
+                out, counts = launch_counts(lambda: distributed_sort_lex(
+                    lanes, mesh, engine=engine, merge=merge, device=device))
+                check_engine_output(f"rank {rank}, {name}, {engine}, "
+                                    f"{merge}", lanes, out)
+                times[f"{name}, {engine}, {merge}"] = wall(
+                    lambda: distributed_sort_lex(lanes, mesh, engine=engine,
+                                                 merge=merge, device=device))
+                print("MESH_LAUNCHES " + json.dumps(counts), flush=True)
+        print("MESH_TIMES " + json.dumps(times), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_ranks(world: int, workdir: str, timeout: float = 240):
+    """Start ``world`` ranks of :func:`mesh_rank` on this card and join
+    them within ``timeout`` seconds; kill them all and fail if one fails.
+    Returns each rank's output (kept in ``workdir/rank<r>.log``)."""
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+         str(r), str(world), workdir], stdout=logs[r],
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"mesh ranks {bad} failed (codes "
+                             f"{[procs[r].returncode for r in bad]}):\n"
+                             + outs[bad[0]][-4000:])
+    return outs
+
+
+def phase_mesh(report, device, ds2_words, big_words):
+    """The mesh tier through its entry points (``core.distributed``), the
+    launch counters read around every driven run: DS2 and the million words
+    through ``distributed_chunked_sort_lex`` at 8 destinations of this card
+    (k-way and tournament combines, ``validate='full'`` once), each equal
+    to ``chunked_sort_packed`` and to Python's shortlex order, DS2 timed
+    whole (median of 3) and staged (ingest, exchange, combine); a
+    ``ShardStore`` spill and its resume (no destination merge), a kill
+    between the exchange and the combine and its resume, a speculative
+    combine with one slow destination, and the 25-seed chaos soak; then the
+    engines: ``distributed_sort_lex`` at world size 1 over NCCL in this
+    process, and in ``MESH_RANKS`` processes on this card over gloo (both
+    engines, every odd-even merge; each rank checks its own output and
+    reports its launches)."""
+    import datetime
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import to_numpy
+    from repro_torch.core import packing
+    from repro_torch.core.distributed import (_exchange, _ingest_runs,
+                                              distributed_chunked_sort_lex,
+                                              distributed_sort_lex)
+    from repro_torch.parallel import make_mesh
+    from repro_torch.pipeline import (ShardedRun, ShardStore, RunStore,
+                                      chunked_sort_packed)
+    from repro_torch.pipeline import merge as merge_mod
+    from repro_torch.runtime import (ProcessKilled, SortSupervisor,
+                                     SpeculationPolicy, StageFailureInjector,
+                                     StragglerMonitor, chaos_soak)
+    t_phase = time.perf_counter()
+    devs = [device] * MESH_DESTS
+    ds2_keys = packing.pack_words(ds2_words)
+    ds2_oracle = packing.pack_words(shortlex(ds2_words))
+    ds2_chunked = chunked_sort_packed(ds2_keys, device=device)
+    kway = ("merge_runs_kway", "kway_split", "kway_gather")
+    tourney = ("merge_runs_lex", "merge_path_starts")
+
+    def drive(name, run, want, merge_kernels=(), sorts=None):
+        """``run()`` once with the counters read around it; its gathered
+        (or materialised) keys must be ``want``."""
+        out, counts = launch_counts(run)
+        got = out.to_run(device=device) if isinstance(out, ShardedRun) \
+            else out
+        if not np.array_equal(to_numpy(got.keys), want):
+            raise AssertionError(f"{name}: not the shortlex order")
+        for kname in merge_kernels:
+            if counts[kname] == 0:
+                raise AssertionError(f"{name}: {kname} never launched")
+        if sorts is not None and counts["distribute_rows"] != sorts:
+            raise AssertionError(f"{name}: {counts['distribute_rows']} "
+                                 f"chunk sorts, expected {sorts}")
+        for kname, c in counts.items():
+            report.rows[kname]["launches"] += c
+        print(f"[mesh] {name}: launches {counts}; shortlex oracle: equal")
+        return got
+
+    def mesh_sort(keys, **kw):
+        return lambda: distributed_chunked_sort_lex(keys, devices=devs, **kw)
+
+    # DS2 across 8 destinations, each engine
+    for label, engine, kernels, kw in (
+            ("k-way", "auto", kway, {}),
+            ("tournament", "tournament", tourney, {}),
+            ("k-way, validate=full", "auto", kway, {"validate": "full"})):
+        name = f"DS2 at {MESH_DESTS} destinations, {label}"
+        run = mesh_sort(ds2_keys, merge_engine=engine, **kw)
+        got = drive(name, run, ds2_oracle, kernels, MESH_DESTS)
+        if not (torch.equal(got.lengths, ds2_chunked.lengths) and torch.equal(
+                got.keys.view(torch.int32),
+                ds2_chunked.keys.view(torch.int32))):
+            raise AssertionError(f"{name}: differs from chunked_sort_packed")
+        times = [wall(run) for _ in range(3)]
+        t0 = time.perf_counter()
+        runs, _ = _ingest_runs(ds2_keys, devs, algorithm="pallas",
+                               on_overflow="raise", store=None,
+                               supervisor=None, need_manifest=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        per_dest = _exchange([r.lanes() for r in runs],
+                             [r.cmp_lanes() for r in runs], devs, 8)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for sub_lanes, sub_cmps in per_dest:
+            merge_mod.merge_runs(sub_lanes, engine=engine, cmp_runs=sub_cmps)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        incoming = [sum(int(s[0].shape[0]) for s in sub)
+                    for sub, _ in per_dest]
+        print(f"[mesh] {name}: whole call median "
+              f"{statistics.median(times) * 1e3:.3f} ms "
+              f"{[round(t * 1e3, 3) for t in times]} "
+              f"({len(ds2_words) / statistics.median(times):.0f} words/s); "
+              f"staged: ingest {(t1 - t0) * 1e3:.3f} ms, exchange "
+              f"{(t2 - t1) * 1e3:.3f} ms, combine {(t3 - t2) * 1e3:.3f} ms; "
+              f"destinations receive {incoming}; chunked_sort_packed: equal")
+
+    # the million words at 8 destinations
+    big_keys = packing.pack_words(big_words)
+    big_oracle = packing.pack_words(shortlex(big_words), width=16)
+    big_run = mesh_sort(big_keys)
+    drive(f"1M words at {MESH_DESTS} destinations, k-way", big_run,
+          big_oracle, kway, MESH_DESTS)
+    print(f"[mesh] 1M words at {MESH_DESTS} destinations, k-way: one call "
+          f"{wall(big_run) * 1e3:.3f} ms")
+
+    def counting_merges():
+        return mock.patch.object(merge_mod, "merge_runs",
+                                 side_effect=merge_mod.merge_runs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the spill, and a resume that merges no destination
+        shards = os.path.join(tmp, "spill")
+        drive("DS2 spill to a ShardStore, validate=full",
+              mesh_sort(ds2_keys, shard_store=ShardStore(shards),
+                        validate="full"), ds2_oracle, kway, MESH_DESTS)
+        with counting_merges() as merges:
+            drive("DS2 spill resume", mesh_sort(
+                ds2_keys, shard_store=ShardStore(shards), validate="full"),
+                ds2_oracle, (), MESH_DESTS)
+        if merges.call_count != 0:
+            raise AssertionError(f"the spill resume merged "
+                                 f"{merges.call_count} destination(s)")
+        # a kill between the exchange and the combine, and its resume
+        runs_dir, kill_dir = (os.path.join(tmp, "runs"),
+                              os.path.join(tmp, "kill"))
+        sup = SortSupervisor(injector=StageFailureInjector(
+            kill_at={"streaming_combine": {2}}))
+        try:
+            mesh_sort(ds2_keys, store=RunStore(runs_dir),
+                      shard_store=ShardStore(kill_dir), supervisor=sup)()
+            raise AssertionError("the injected kill did not stop the job")
+        except ProcessKilled:
+            pass
+        if ShardStore(kill_dir).completed() != [0, 1]:
+            raise AssertionError("the killed job's shard store does not "
+                                 "hold exactly destinations 0 and 1")
+        with counting_merges() as merges:
+            drive("DS2 resume after a kill in the combine", mesh_sort(
+                ds2_keys, store=RunStore(runs_dir),
+                shard_store=ShardStore(kill_dir), validate="full"),
+                ds2_oracle, kway, 0)
+        if merges.call_count != MESH_DESTS - 2:
+            raise AssertionError(f"the resume merged {merges.call_count} "
+                                 f"destinations, expected {MESH_DESTS - 2}")
+        # a speculative combine with one slow destination
+        inj = StageFailureInjector(slow_at={"streaming_combine": {5: 0.5}})
+        sup = SortSupervisor(injector=inj, speculation=SpeculationPolicy(
+            monitor=StragglerMonitor(warmup=3, min_ratio=3.0),
+            min_wait=0.05))
+        drive("DS2 speculative combine, destination 5 slow",
+              mesh_sort(ds2_keys, supervisor=sup, validate="full"),
+              ds2_oracle, kway, MESH_DESTS)
+        actions = [e.action for e in sup.events]
+        if "speculate" not in actions or \
+                "speculation_confirmed" not in actions:
+            raise AssertionError(f"no confirmed speculation: {actions}")
+        # the chaos soak
+        soak_keys = packing.pack_words(synthetic_soak_words())
+        t0 = time.perf_counter()
+        reports, counts = launch_counts(lambda: chaos_soak(
+            soak_keys, seeds=range(MESH_SOAK_SEEDS),
+            workdir=os.path.join(tmp, "soak"), devices=devs,
+            num_devices=MESH_DESTS))
+        bad = [(r.seed, r.first_error, r.detail) for r in reports
+               if not r.ok]
+        if bad:
+            raise AssertionError(f"chaos soak: {bad}")
+        for kname, c in counts.items():
+            report.rows[kname]["launches"] += c
+        print(f"[mesh] chaos soak: {MESH_SOAK_SEEDS} seeds over "
+              f"{MESH_DESTS} destinations of this card, every seed ok "
+              f"({sum(r.resumed for r in reports)} resumed, "
+              f"{sum(len(r.fired) for r in reports)} faults fired, "
+              f"{sum(len(r.damaged) for r in reports)} damages) in "
+              f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+
+    # the engines: world size 1 over NCCL in this process
+    lanes = ds2_tuple(ds2_words)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh((1,), ("data",), "cuda")
+            for engine in ("odd_even", "sample"):
+                name = f"DS2 shortlex tuple, {engine}, 1 rank over NCCL"
+                out, counts = launch_counts(lambda: distributed_sort_lex(
+                    lanes, mesh, engine=engine, device=device))
+                check_engine_output(name, lanes, out)
+                for kname, c in counts.items():
+                    report.rows[kname]["launches"] += c
+                t = wall(lambda: distributed_sort_lex(
+                    lanes, mesh, engine=engine, device=device), reps=3)
+                print(f"[mesh] {name}: median {t * 1e3:.3f} ms over 3; "
+                      f"launches {counts}; lex order: equal")
+        finally:
+            dist.destroy_process_group()
+        # ... and MESH_RANKS processes on this card over gloo
+        np.savez(os.path.join(tmp, "ds2_tuple.npz"),
+                 **{f"lane{i}": a for i, a in enumerate(lanes)})
+        t0 = time.perf_counter()
+        outs = run_mesh_ranks(MESH_RANKS, tmp)
+        total = Counter()
+        for r, text in enumerate(outs):
+            for line in text.splitlines():
+                if line.startswith("MESH_LAUNCHES "):
+                    total.update(json.loads(line.split(" ", 1)[1]))
+                elif line.startswith("MESH_TIMES ") and r == 0:
+                    times = json.loads(line.split(" ", 1)[1])
+                    for case, t in times.items():
+                        print(f"[mesh] {MESH_RANKS} gloo ranks on this card, "
+                              f"{case}: {t * 1e3:.3f} ms (rank 0, one call; "
+                              "collectives staged through the host)")
+        for kname, c in total.items():
+            report.rows[kname]["launches"] += c
+        for kname in ("bitonic_rows_lex", "merge_adjacent_lex",
+                      "merge_runs_lex"):
+            if total[kname] == 0:
+                raise AssertionError(f"the gloo ranks never launched "
+                                     f"{kname}")
+        print(f"[mesh] {MESH_RANKS} gloo ranks: every rank's output in lex "
+              f"order; launches over all ranks {dict(total)}; "
+              f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def synthetic_soak_words():
+    """The soak's 200 words: ``tests/test_chaos.py``'s generator."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    alpha = list("abcdefgh")
+    return ["".join(rng.choice(alpha, l)) for l in rng.integers(0, 9, 200)]
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1821,6 +2181,7 @@ def main() -> int:
     phase_run_tier(report, device, words["DS2"], big_words)
     phase_fault_tolerance(report, device, words["DS2"], big_words)
     phase_partition_and_repairs(report, device, words["DS2"], big_words)
+    phase_mesh(report, device, words["DS2"], big_words)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

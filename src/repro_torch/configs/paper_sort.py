@@ -9,8 +9,11 @@ exchange strategy of the distributed sort.
 A copy of ``repro.configs.paper_sort``, field for field, so both packages
 read the same datasets. The port sorts with ``algorithm='pallas'`` (its
 hand-written kernel path) whatever ``algorithm`` says; the traced
-'oets'/'bitonic' networks and 'xla' are not ported yet (ROADMAP A12), and
-``merge``/``devices`` wait for the mesh tier (ROADMAP A9).
+'oets'/'bitonic' networks and 'xla' are not ported yet (ROADMAP A12).
+``merge`` is the odd-even engine's merge of the mesh tier
+(``core.distributed.distributed_sort_lex(merge=...)``) and ``devices`` its
+width: the ranks of that sort, or the destinations of
+``distributed_chunked_sort_lex``.
 """
 
 import dataclasses

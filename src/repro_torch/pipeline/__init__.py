@@ -12,7 +12,8 @@ the sorted runs — the counterpart of ``repro.pipeline``.
                  atomic resumable run store (:class:`RunStore`) behind
                  ``chunked_sort_*(store=...)``, on the reference's files.
   ``shards``     per-destination output shards (:class:`ShardStore`,
-                 :class:`ShardedRun`) for the mesh tier's spill (ROADMAP A9).
+                 :class:`ShardedRun`): the spill of the mesh tier's
+                 ``core.distributed.distributed_chunked_sort_lex``.
   ``validate``   the invariant gate: sortedness, count and histogram
                  conservation, order-independent content digests
                  (``validate='off'|'cheap'|'full'``), and the shards'

@@ -1,7 +1,8 @@
 """Sharded spill storage: per-destination sorted outputs as atomic disk
 shards — the counterpart of ``repro.pipeline.shards``, on the same files.
 
-The mesh tier's shard-combining chunked sort (ROADMAP A9) writes each
+The mesh tier's shard-combining chunked sort
+(``core.distributed.distributed_chunked_sort_lex``) writes each
 destination's merged output here the moment its k-way merge completes, so
 a job killed during the combine keeps every finished destination.
 :class:`ShardStore` is a :class:`~repro_torch.pipeline.manifest.RunStore`

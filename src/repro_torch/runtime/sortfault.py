@@ -529,7 +529,10 @@ class SortSupervisor:
         smaller mesh on ``DeviceFailure`` (the ``ElasticSupervisor``
         control flow, minus the checkpoint: a sort's input is its own
         checkpoint, so lost chunks simply re-execute on the survivors). The
-        injector's ``exchange`` stage probes each dispatch."""
+        injector's ``exchange`` stage probes each dispatch. For the mesh
+        chunked sort, ``make_mesh(p)`` gives ``p`` destinations and ``run``
+        calls ``core.distributed.distributed_chunked_sort_lex(keys,
+        devices=...)`` on them."""
         recoveries = 0
         while True:
             try:

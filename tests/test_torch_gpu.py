@@ -656,3 +656,69 @@ def test_runmerge_kernel_sweep_matches_plain(cuda, n_cmp, fill):
             assert runmerge_kernel.KERNEL.launches == before + 1
             assert torch.equal(got, runmerge_kernel.runmerge_plain(
                 sa, sb, da, db, starts, codes, block)), (edge, block)
+
+
+# --- the mesh tier ----------------------------------------------------------
+
+def _shortlex(words):
+    return sorted(words, key=lambda w: (len(w.encode()), w.encode()))
+
+
+@pytest.mark.parametrize("engine", ["auto", "tournament"])
+def test_mesh_chunked_sort_on_eight_destinations_of_one_card(cuda, engine):
+    """``distributed_chunked_sort_lex`` over ``[cuda:0] * 8``: equal to the
+    CPU port's and to the shortlex order, through the kernels."""
+    from repro_torch.core.distributed import distributed_chunked_sort_lex
+    from repro_torch.kernels import KERNELS
+    words = synthetic_words(20_000, seed=4)
+    keys = packing.pack_words(words)
+    for k in KERNELS.values():
+        k.launches = 0
+    run = distributed_chunked_sort_lex(keys, devices=[cuda] * 8,
+                                       merge_engine=engine, validate="full")
+    torch.cuda.synchronize()
+    want = distributed_chunked_sort_lex(keys, devices=[torch.device("cpu")]
+                                        * 8, merge_engine=engine)
+    assert torch.equal(run.lengths.cpu(), want.lengths)
+    assert np.array_equal(to_numpy(run.keys), to_numpy(want.keys))
+    assert packing.unpack_words(to_numpy(run.keys)) == _shortlex(words)
+    merge = "merge_runs_kway" if engine == "auto" else "merge_runs_lex"
+    for name in ("distribute_rows", "bitonic_rows_lex", merge):
+        assert KERNELS[name].launches > 0, name
+
+
+def test_chaos_soak_on_eight_destinations_of_one_card(cuda, tmp_path):
+    from repro_torch.runtime import chaos_soak
+    keys = packing.pack_words(synthetic_words(200, seed=0))
+    reports = chaos_soak(keys, seeds=range(6), workdir=str(tmp_path),
+                         devices=[cuda] * 8, num_devices=8)
+    assert all(r.ok for r in reports), [(r.seed, r.detail) for r in reports
+                                        if not r.ok]
+
+
+def test_engines_at_world_size_one_over_nccl(cuda, tmp_path):
+    """Both engines and every odd-even merge at world size 1 over NCCL (the
+    ring shift is skipped: no rank has a partner), equal to numpy's lex
+    sort of the tuple."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import distributed_sort_lex
+    from repro_torch.parallel import make_mesh
+    rng = np.random.default_rng(5)
+    n = 20_000
+    lanes = [rng.integers(0, 16, n).astype(np.int32),
+             rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32),
+             np.arange(n, dtype=np.uint32)]
+    order = np.lexsort(tuple(reversed(lanes)))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rv",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), "cuda")
+        for engine, merge in (("odd_even", "bitonic"), ("odd_even", "take"),
+                              ("odd_even", "resort"), ("sample", "bitonic")):
+            out = distributed_sort_lex(lanes, mesh, engine=engine,
+                                       merge=merge, validate="full",
+                                       device=cuda)
+            for got, lane in zip(out, lanes):
+                assert np.array_equal(to_numpy(got), lane[order]), engine
+    finally:
+        dist.destroy_process_group()

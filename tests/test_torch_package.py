@@ -60,7 +60,10 @@ def test_importing_the_port_loads_no_jax():
                 "repro_torch.checkpoint.manager, "
                 "repro_torch.runtime.failure, "
                 "repro_torch.runtime.straggler, "
-                "repro_torch.runtime.sortfault; "
+                "repro_torch.runtime.sortfault, "
+                "repro_torch.runtime.chaos, repro_torch.parallel, "
+                "repro_torch.parallel.compat, repro_torch.core.bitonic, "
+                "repro_torch.core.distributed; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'repro')]; print(bad); "
                 "sys.exit(1 if bad else 0)"])
@@ -73,6 +76,7 @@ def test_entry_points_default_to_the_card():
     import numpy as np
     from repro_torch import bucketed_sort_words, bucketize_packed, \
         chunked_sort_packed, chunked_sort_words, sorted_packed
+    from repro_torch.core.distributed import distributed_chunked_sort_lex
     from repro_torch.interop import run_to_device
     from repro_torch.pipeline import sorted_run
     words = ["pear", "fig", "apple", "kiwi"]
@@ -88,7 +92,8 @@ def test_entry_points_default_to_the_card():
                  lambda: chunked_sort_words([]),
                  lambda: chunked_sort_packed(keys),
                  lambda: sorted_run(keys),
-                 lambda: run_to_device(np.ones(2, np.int32), keys)):
+                 lambda: run_to_device(np.ones(2, np.int32), keys),
+                 lambda: distributed_chunked_sort_lex(keys)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -136,3 +141,26 @@ def test_every_public_kernel_name_has_a_counterpart():
             continue
         assert name in port.__all__, name
         assert hasattr(port, name), name
+
+
+# the reference modules of the mesh tier and the names of each that exist
+# only for JAX (the mesh-API shims of repro.parallel.compat; the port's
+# collectives are the ring shift, gathers and all_to_all over a group)
+_MESH_MODULES = {
+    "core.bitonic": (),
+    "core.distributed": (),
+    "runtime.chaos": (),
+    "parallel.compat": ("AxisType", "mesh_from_devices", "set_mesh",
+                        "get_abstract_mesh", "shard_map", "shard_map_norep"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(_MESH_MODULES))
+def test_mesh_modules_export_the_reference_names(module):
+    import importlib
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    for name in ref.__all__:
+        if name in _MESH_MODULES[module]:
+            continue
+        assert name in port.__all__ and hasattr(port, name), name

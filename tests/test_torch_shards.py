@@ -1,7 +1,8 @@
 """The port's shard store (``repro_torch.pipeline.shards``) and its
 metadata-only gate (``validate.check_sharded``) against the reference's:
-the store and gate cases of ``tests/test_shards.py`` (the spill and resume
-cases of ``distributed_chunked_sort_lex`` wait for the port's mesh tier),
+the store and gate cases of ``tests/test_shards.py`` (its spill and resume
+cases of ``distributed_chunked_sort_lex`` are in
+``tests/test_torch_distributed_chunked.py``),
 each gate verdict the reference's on the same manifests, and shards written
 by either package loaded by the other; plus the port's copy of the length
 histogram utilities against ``repro.pipeline.histogram``."""
