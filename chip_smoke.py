@@ -72,7 +72,23 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      splitters, none, C = 130 with R = 1, uint32 keys past 2^31, and a
      sweep of splitter counts from 0 to ``MAX_SPLITTERS`` at ragged column
      counts), and timed beside its plain version and ``torch.bucketize``
-     plus a scatter-add.
+     plus a scatter-add;
+  5. mesh — ``distributed_chunked_sort_lex`` at 8 destinations of the
+     card, its spill, resumes, speculation and chaos soak, and the engines
+     over NCCL at world size 1 and in 4 gloo rank processes
+     (``phase_mesh``);
+  6. serve — Granite-MoE 1B at its published width (bf16, weights drawn on
+     the card from seed 0) serving 32 requests through
+     ``BucketedScheduler(Engine(..., sort_impl='pallas')).run``: every
+     request answered with 16 tokens, the admission sort on B1 and the MoE
+     dispatch on B1 (decode) and blocksort's B2 and B4 (prefill), with
+     tokens/s, prefill and decode medians, padding waste and peak memory;
+     then the admission permutation at 32, 200 and 2,000 requests against
+     the plain versions' on the CPU, the kernels' dispatch permutation at
+     each of the 24 layers of an 8 x 512 prefill against the stable
+     argsort's of the same assignments and that prefill's logits against
+     the 'xla' dispatch's, and the engine's greedy tokens on the card
+     against the CPU's at the smoke config in float32 (``phase_serve``).
 
 Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
 so the host's time per call counts where it is longer) and ``device_ms``
@@ -150,6 +166,21 @@ MESH_DESTS = 8
 MESH_RANKS = 4
 MESH_SOAK_SEEDS = 25
 MESH_SEED = 11
+# phase 6: Granite-MoE 1B served at full width, its admission queues (B1,
+# B2, blocksort), one full-width prefill batch's length, and the tolerance
+# of its logits between the 'pallas' and 'xla' dispatch, whose permutations
+# are equal: two bf16 forwards of the same permutations (at 2^-3, 16 bf16
+# steps at 1.0)
+SERVE_ARCH = "granite-moe-1b-a400m"
+SERVE_REQUESTS = 32
+SERVE_MAX_NEW = 16
+SERVE_BATCH = 8
+SERVE_MAX_SEQ = 1024
+ADMISSION_QUEUES = (32, 200, 2000)
+DISPATCH_SEQ = 512
+DISPATCH_LOGIT_ATOL = 0.125
+# the kernels of the serving path: the admission sort and the MoE dispatch
+SERVE_PATH = ("oets_rows_lex", "bitonic_rows_lex", "merge_adjacent_lex")
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -2144,6 +2175,211 @@ def phase_mesh(report, device, ds2_words, big_words):
     print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 6 ----------------------------------------------------------------
+
+def serve_prompts(vocab: int):
+    """The wave's prompts: lengths ``default_rng(0).integers(16, 513)``,
+    tokens from the same generator."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(16, 513, SERVE_REQUESTS)
+    return [rng.integers(1, vocab, int(l)).tolist() for l in lengths]
+
+
+def admission_queue(n: int, seed: int):
+    """``n`` requests whose lengths, first and second tokens tie often (a
+    few values each), so the payload tie-break decides."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, 4, int(rng.integers(16, 20))).tolist())
+            for i in range(n)]
+
+
+def timed(fn, times: list):
+    """``fn`` with its calls timed on the host clock between two device
+    synchronizations, each time appended to ``times`` in ms."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def granite_full_width(device):
+    """Granite-MoE 1B at its published dimensions (bfloat16) on
+    ``device``, weights drawn from a seeded ``torch.Generator``; returns
+    ``(cfg, lm, seconds)``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    lm = init_lm(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    return cfg, lm, time.perf_counter() - t0
+
+
+def used(runs: dict) -> dict:
+    """The launch counts of the kernels that ran."""
+    return {k: c for k, c in runs.items() if c}
+
+
+def recorded_dispatches():
+    """Patch ``models.moe._sort_assignments`` to keep, for every call, its
+    ``(sorted expert ids, permutation)`` and those of ``sort_impl='xla'``
+    (a stable ``torch.argsort``) on the same assignments; returns the list
+    and the undo."""
+    from repro_torch.models import moe
+    real, seen = moe._sort_assignments, []
+
+    def rec(flat_e, payload, impl):
+        out = real(flat_e, payload, impl)
+        seen.append((out, real(flat_e, payload, "xla")))
+        return out
+    moe._sort_assignments = rec
+
+    def undo():
+        moe._sort_assignments = real
+    return seen, undo
+
+
+def phase_serve(report, device):
+    """Serve Granite-MoE 1B at full width through the scheduler and the
+    engine with the kernels' dispatch ('pallas'), then check the admission
+    permutation, the dispatch and the engine against the plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import plan_buckets
+    from repro_torch.models import forward, init_lm
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.serve import BucketedScheduler, Engine, Request
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, lm, t_init = granite_full_width(device)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+          f"{n_params} parameters in {lm.embed.dtype}, drawn on the card in "
+          f"{t_init:.2f} s")
+
+    # 1. serve 32 requests
+    engine = Engine(cfg, lm, max_seq=SERVE_MAX_SEQ, sort_impl="pallas")
+    engine.generate([[1, 2, 3]], max_new=2)            # cuBLAS and caches
+    times = {"prefill": [], "decode": []}
+    engine._prefill = timed(engine._prefill, times["prefill"])
+    engine._decode = timed(engine._decode, times["decode"])
+    prompts = serve_prompts(cfg.vocab_size)
+    reqs = [Request(i, p, max_new=SERVE_MAX_NEW) for i, p in enumerate(prompts)]
+    sched = BucketedScheduler(engine, batch_size=SERVE_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, runs = launch_counts(lambda: sched.run(reqs))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for kname, c in runs.items():
+        report.rows[kname]["launches"] += c
+    if sorted(r.request_id for r in results) != list(range(len(reqs))) \
+            or any(len(r.tokens) != SERVE_MAX_NEW for r in results):
+        raise AssertionError("serve: not every request was answered with "
+                             f"{SERVE_MAX_NEW} tokens")
+    for kname in SERVE_PATH:
+        if runs[kname] == 0:
+            raise AssertionError(f"serve: {kname} was never launched")
+    tokens = sum(len(r.tokens) for r in results)
+    bounds = plan_buckets([len(p) for p in prompts], sched.n_buckets)
+    waste = BucketedScheduler.padding_stats(reqs, bounds)
+    print(f"[serve] {len(results)} requests, {tokens} tokens in "
+          f"{wall:.3f} s ({tokens / wall:.1f} tokens/s); bounds {bounds}; "
+          f"{len(times['prefill'])} prefill batches, median "
+          f"{statistics.median(times['prefill']):.2f} ms a batch; "
+          f"{len(times['decode'])} decode steps, median "
+          f"{statistics.median(times['decode']):.2f} ms a step; padding "
+          f"waste global {waste['global_waste']:.4f} bucketed "
+          f"{waste['bucketed_waste']:.4f}; max_memory_allocated {peak} B; "
+          f"launches {used(runs)}")
+
+    # 2. the admission permutation on the card against the CPU
+    for n in ADMISSION_QUEUES:
+        queue = admission_queue(n, seed=n)
+        got, runs = launch_counts(lambda: BucketedScheduler._order_by_length(
+            queue, device=device))
+        want = BucketedScheduler._order_by_length(queue, device="cpu")
+        for kname, c in runs.items():
+            report.rows[kname]["launches"] += c
+        if [r.request_id for r in got] != [r.request_id for r in want]:
+            raise AssertionError(f"admission of {n}: the card's permutation "
+                                 "differs from the plain versions' on the "
+                                 "CPU")
+        print(f"[serve] admission of {n} requests: permutation equal to the "
+              f"CPU's; launches {used(runs)}")
+
+    # 3. the dispatch: one full-width prefill batch, 'pallas' and 'xla'; the
+    # kernels' permutation at every layer against the stable argsort's of
+    # the same assignments, and the two forwards' logits
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (SERVE_BATCH, DISPATCH_SEQ))).to(device)}
+    logits = {}
+    for impl in ("xla", "pallas"):
+        ms = []
+        with torch.inference_mode():
+            out, runs = launch_counts(lambda: timed(forward, ms)(
+                cfg, lm, batch, Rules(), sort_impl=impl))
+        if impl == "pallas":
+            for kname, c in runs.items():
+                report.rows[kname]["launches"] += c
+        logits[impl] = out[0].float()
+        print(f"[serve] prefill {SERVE_BATCH} x {DISPATCH_SEQ} with "
+              f"sort_impl={impl!r}: {ms[0]:.2f} ms; launches {used(runs)}")
+    seen, undo = recorded_dispatches()
+    try:
+        with torch.inference_mode():
+            forward(cfg, lm, batch, Rules(), sort_impl="pallas")
+    finally:
+        undo()
+    if len(seen) != cfg.n_layers:
+        raise AssertionError("dispatch: expected one sort a layer")
+    for layer, (got, want) in enumerate(seen):
+        if not all(torch.equal(g.long(), w.long())
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"dispatch: layer {layer}'s permutation "
+                                 "differs between 'pallas' and 'xla'")
+    diff = float((logits["pallas"] - logits["xla"]).abs().max())
+    scale = float(logits["xla"].abs().max())
+    print(f"[serve] dispatch: {cfg.n_layers} layers' permutations of "
+          f"{SERVE_BATCH * DISPATCH_SEQ * cfg.moe.top_k} assignments "
+          f"identical to the stable argsort's; logits max abs difference "
+          f"{diff} (max |logit| {scale}, tolerance {DISPATCH_LOGIT_ATOL})")
+    if not diff <= DISPATCH_LOGIT_ATOL:
+        raise AssertionError("dispatch: the logits differ past the bf16 "
+                             "tolerance")
+    del lm, engine, logits, seen
+    torch.cuda.empty_cache()
+
+    # 4. the engine on the card against the CPU, smoke config in float32
+    small = get_smoke_config(SERVE_ARCH)
+    cpu_lm = init_lm(small, seed=0, device="cpu")
+    prompts = [list(range(1, 1 + n)) for n in (3, 17, 9, 30)]
+    want = Engine(small, cpu_lm, max_seq=64, sort_impl="pallas").generate(
+        prompts, max_new=8)
+    got = Engine(small, cpu_lm.to(device), max_seq=64,
+                 sort_impl="pallas").generate(prompts, max_new=8)
+    if got != want:
+        raise AssertionError(f"engine: the card's greedy tokens {got} differ "
+                             f"from the CPU's {want}")
+    print(f"[serve] engine at the smoke config in float32: greedy tokens "
+          f"equal on the card and the CPU")
+    print(f"[serve] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def synthetic_soak_words():
     """The soak's 200 words: ``tests/test_chaos.py``'s generator."""
     import numpy as np
@@ -2182,6 +2418,7 @@ def main() -> int:
     phase_fault_tolerance(report, device, words["DS2"], big_words)
     phase_partition_and_repairs(report, device, words["DS2"], big_words)
     phase_mesh(report, device, words["DS2"], big_words)
+    phase_serve(report, device)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

@@ -7,9 +7,12 @@ cleaned Shakespeare); `algorithm` picks the in-bucket comparator network
 exchange strategy of the distributed sort.
 
 A copy of ``repro.configs.paper_sort``, field for field, so both packages
-read the same datasets. The port sorts with ``algorithm='pallas'`` (its
-hand-written kernel path) whatever ``algorithm`` says; the traced
-'oets'/'bitonic' networks and 'xla' are not ported yet (ROADMAP A12).
+read the same datasets. ``algorithm`` is a name of
+``core.bucketing.sort_buckets``: ``bucketed_sort_words(words,
+algorithm=CONFIG.algorithm)`` sorts every bucket with that network ('oets',
+the paper's parallel bubble sort as torch ops, 'bitonic', or 'xla', a lex
+sort of the lanes), and 'pallas' is the port's hand-written kernel path,
+the default of the port's entry points.
 ``merge`` is the odd-even engine's merge of the mesh tier
 (``core.distributed.distributed_sort_lex(merge=...)``) and ``devices`` its
 width: the ranks of that sort, or the destinations of

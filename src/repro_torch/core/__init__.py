@@ -1,8 +1,8 @@
 """The paper's pipeline in the port: packing, bucketing, blocksort, the
-bitonic network and the mesh tier (``distributed``: odd-even and sample
-engines over ``torch.distributed``, and the out-of-core mesh chunked sort).
-The reference's traced OETS network (``core/oets.py``) waits for ROADMAP
-A12."""
+comparator networks as torch ops (``oets``, the paper's parallel bubble
+sort, and ``bitonic``) and the mesh tier (``distributed``: odd-even and
+sample engines over ``torch.distributed``, and the out-of-core mesh chunked
+sort)."""
 
 from .bitonic import (bitonic_merge, bitonic_merge_kv, bitonic_merge_lex,
                       bitonic_sort, bitonic_sort_kv)
@@ -16,6 +16,7 @@ from .distributed import (SampleSortResult, choose_engine,
                           local_merge, odd_even_block_sort,
                           odd_even_block_sort_lex, sample_sort,
                           sample_sort_exact, sample_sort_lex)
+from .oets import lex_gt, oets_argsort, oets_sort, oets_sort_kv
 from .packing import (SENTINEL_U32, byte_length, lanes_for_width, pack_words,
                       unpack_words)
 
@@ -28,4 +29,5 @@ __all__ = ["Buckets", "bucketize_words", "bucketize_packed", "sort_buckets",
            "odd_even_block_sort", "odd_even_block_sort_lex", "sample_sort",
            "sample_sort_lex", "sample_sort_exact", "SampleSortResult",
            "distributed_sort", "distributed_sort_kv", "distributed_sort_lex",
-           "distributed_chunked_sort_lex", "local_merge"]
+           "distributed_chunked_sort_lex", "local_merge", "oets_sort",
+           "oets_sort_kv", "oets_argsort", "lex_gt"]

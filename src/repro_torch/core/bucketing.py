@@ -23,9 +23,11 @@ import numpy as np
 import torch
 
 from . import packing
+from .bitonic import bitonic_sort
+from .oets import oets_sort_rows
 from ..interop import resolve_device, to_device, to_numpy
 from ..kernels.keypack import pack_shortlex
-from ..kernels.lex import as_bits
+from ..kernels.lex import as_bits, from_bits, order_view
 from ..kernels.ops import bucketize, distribute, scatter_to_buckets, \
     segmented_sort
 from ..runtime.failure import CapacityOverflow
@@ -108,24 +110,55 @@ def sort_buckets(keys: torch.Tensor, algorithm: str = "pallas",
                  block_size: int | None = None) -> torch.Tensor:
     """Sort every bucket of ``keys`` ``(num_buckets, capacity, lanes)``.
 
-    ``algorithm='pallas'`` — the name kept from the reference so its
-    counterpart is easy to find — is the port's hand-written kernel path:
-    ``kernels.ops.segmented_sort``, one batched launch over all buckets.
-    ``counts`` re-masks the slots past each bucket's count to the sentinel.
-    ``block_size`` forces blocksort with that block for every bucket;
-    ``None`` lets ``choose_plan`` pick the tier by capacity.
+    ``algorithm``:
+      * 'pallas' — the name kept from the reference so its counterpart is
+        easy to find — the port's hand-written kernel path:
+        ``kernels.ops.segmented_sort``, one batched launch over all buckets.
+        ``counts`` re-masks the slots past each bucket's count to the
+        sentinel; ``block_size`` forces blocksort with that block for every
+        bucket (``None`` lets ``choose_plan`` pick the tier by capacity).
+      * 'oets' — the paper's parallel bubble sort as a network of torch ops
+        (``core.oets``), every bucket at once; the reference's default.
+      * 'bitonic' — the bitonic network (``core.bitonic``), bucket by
+        bucket.
+      * 'xla' — a lex sort of the lanes. XLA's variadic sort has no torch
+        counterpart; stable ``torch.sort`` passes over the lanes' order
+        keys, from the least significant lane to the most, give the same
+        lex order, and every lane is a key, so equal tuples are equal bits
+        and the result is the reference's bit for bit.
 
-    The reference's traced networks ('oets', its default, which runs no
-    kernel, and 'bitonic') and 'xla' are not ported yet (ROADMAP A12)."""
+    The networks and 'xla' trust the tensor's sentinel padding (``counts``
+    and ``block_size`` apply to 'pallas' only), and compare the lanes'
+    int32 order keys, never a ``torch.uint32`` tensor."""
     if algorithm == "pallas":
         return segmented_sort(keys, counts,
                               algorithm="blocksort" if block_size else "auto",
                               block_size=block_size)
-    if algorithm in ("oets", "bitonic", "xla"):
-        raise NotImplementedError(f"sort_buckets: algorithm {algorithm!r} is "
-                                  "not ported yet (ROADMAP A12); the port "
-                                  "runs 'pallas', its kernel path")
+    if algorithm == "oets":
+        return oets_sort_rows(keys)
+    if algorithm == "bitonic":
+        if keys.shape[0] == 0:
+            return keys
+        return from_bits(torch.stack([as_bits(bitonic_sort(b))
+                                      for b in keys]), keys.dtype)
+    if algorithm == "xla":
+        return _lex_sort_rows(keys)
     raise ValueError(f"unknown algorithm {algorithm!r}")
+
+
+def _lex_sort_rows(keys: torch.Tensor) -> torch.Tensor:
+    """Each row of ``keys`` ``(rows, n, lanes)`` in lex order, lane 0 most
+    significant: stable ``torch.sort`` of each lane's order keys, last lane
+    first, composing one permutation."""
+    bits = as_bits(keys)
+    rows, n, lanes = bits.shape
+    perm = torch.arange(n, device=bits.device).expand(rows, n).contiguous()
+    for lane in reversed(range(lanes)):
+        key = order_view(from_bits(bits[..., lane], keys.dtype))
+        _, idx = torch.sort(key.gather(1, perm), dim=1, stable=True)
+        perm = perm.gather(1, idx)
+    return from_bits(bits.gather(1, perm[..., None].expand(rows, n, lanes)),
+                     keys.dtype)
 
 
 def _fused_sort_packed(keys: torch.Tensor, *, capacity: int, algorithm: str,
@@ -214,8 +247,9 @@ def bucketed_sort_words(words, algorithm: str = "pallas",
                         device="cuda") -> list:
     """The paper's pipeline end to end: pack (host) -> distribute, sort
     every bucket, compact (``device``) -> unpack (host). Returns the words
-    in shortlex order. Unlike the reference, whose default 'oets' runs no
-    kernel, the default here is the kernel path."""
+    in shortlex order. ``algorithm``: see :func:`sort_buckets`; unlike the
+    reference, whose default 'oets' runs no kernel, the default here is the
+    kernel path."""
     resolve_device(device)
     words = list(words)
     if not words:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["resolve_device", "to_device", "to_numpy", "run_to_device",
-           "run_to_numpy"]
+           "run_to_numpy", "lm_from_reference"]
 
 
 def resolve_device(device) -> torch.device:
@@ -78,3 +78,49 @@ def run_to_numpy(run):
     ``SortedRun`` fields: ``(lengths, keys, packed_or_None)``."""
     packed = None if run.packed is None else tuple(to_numpy(run.packed))
     return to_numpy(run.lengths), to_numpy(run.keys), packed
+
+
+# the reference's parameter stacks with a leading layer axis
+# (``repro/models/model.py:48-57``)
+_STACKS = ("first", "blocks")
+
+
+def _weight(a) -> torch.Tensor:
+    """A numpy weight as a CPU tensor, bfloat16 leaves (numpy's
+    ``ml_dtypes.bfloat16``, which torch cannot take) through their bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_from_reference(cfg, params, device="cuda"):
+    """The port's ``models.LM`` of ``cfg`` on ``device`` holding the
+    reference's weights ``params`` (``repro.models.init_lm``'s nested dict,
+    each leaf as a numpy array; bfloat16 leaves are taken). The stacked
+    'first' and 'blocks' leaves are split along their layer axis into the
+    LM's per-layer blocks; a tied-embeddings config has no 'head'. Every
+    weight keeps its dtype; a missing or extra leaf raises."""
+    from .models.model import init_lm       # the models import interop
+    dev = resolve_device(device)
+    state = {}
+    for path, leaf in _flatten(params):
+        top, _, rest = path.partition(".")
+        w = _weight(leaf)
+        if top in _STACKS:
+            for i in range(w.shape[0]):
+                state[f"{top}.{i}.{rest}"] = w[i].to(dev)
+        else:
+            state[path] = w.to(dev)
+    lm = init_lm(cfg, device="meta")
+    # assign: the LM takes these tensors (device, dtype) as they are
+    lm.load_state_dict(state, strict=True, assign=True)
+    return lm

@@ -3,9 +3,8 @@ count pass, implemented once; a copy of ``repro.pipeline.histogram``
 (numpy only, so the port keeps its own).
 
 ``data.bucketing``'s quantile bucket bounds and ``serve.scheduler``'s
-admission consume it in the reference (ROADMAP A12 ports those callers);
-the device-side rendering of the same count is the histogram output of
-``kernels/distribute_kernel.py``.
+admission consume it, as in the reference; the device-side rendering of
+the same count is the histogram output of ``kernels/distribute_kernel.py``.
 """
 
 from __future__ import annotations

@@ -146,9 +146,13 @@ def test_interop_round_trip_of_buckets():
 
 @pytest.mark.parametrize("algorithm", ["oets", "bitonic", "xla"])
 def test_unported_bucket_sorts_name_a12(algorithm):
-    keys = torch.zeros((2, 4, 1), dtype=torch.uint32)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tb.sort_buckets(keys, algorithm)
+    """The bucket sorts that waited for ROADMAP A12 run now: each sorts
+    every bucket as the reference's does, bit for bit."""
+    keys = np.array([[[3], [0xFFFFFFFF], [1], [3]],
+                     [[0x80000000], [2], [0], [0xFFFFFFFF]]], np.uint32)
+    want = rb.sort_buckets(jnp.asarray(keys), algorithm)
+    got = tb.sort_buckets(to_device(keys, "cpu"), algorithm)
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
 
 
 def test_cpu_path_launches_no_kernel():

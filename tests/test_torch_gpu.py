@@ -722,3 +722,83 @@ def test_engines_at_world_size_one_over_nccl(cuda, tmp_path):
                 assert np.array_equal(to_numpy(got), lane[order]), engine
     finally:
         dist.destroy_process_group()
+
+
+# ---------------- the serving path ----------------
+
+def _uint32(seed, shape):
+    """uint32 keys past 2^31, with ties on the first lane and sentinels."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    k[..., ::3, 0] = 0x80000001
+    k[..., ::7, :] = 0xFFFFFFFF
+    return torch.from_numpy(k.view(np.int32))
+
+
+@pytest.mark.parametrize("algorithm", ["oets", "bitonic", "xla"])
+def test_sort_buckets_networks_on_uint32_buckets(cuda, algorithm):
+    """The networks and 'xla' work on int32 order bits: no uint32 tensor is
+    indexed or compared on the card."""
+    bits = _uint32(11, (5, 100, 3))
+    want = bucketing.sort_buckets(bits.view(torch.uint32), algorithm)
+    got = bucketing.sort_buckets(bits.to(cuda).view(torch.uint32), algorithm)
+    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(301,), (301, 2)])
+def test_oets_on_uint32_keys_on_the_card(cuda, shape):
+    from repro_torch.core import oets
+    bits = _uint32(12, shape + (1,))[..., 0]
+    want = oets.oets_argsort(bits.view(torch.uint32))
+    got = oets.oets_argsort(bits.to(cuda).view(torch.uint32))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [32, 200, 2000])
+def test_admission_order_on_the_card_matches_the_cpu(cuda, n):
+    """B1 (up to 128), B2 (256) and blocksort (2048) give the plain
+    versions' permutation."""
+    from repro_torch.serve import BucketedScheduler, Request
+    rng = np.random.default_rng(n)
+    rs = [Request(i, [int(t) for t in rng.integers(0, 4,
+                                                   rng.integers(0, 6))])
+          for i in range(n)]
+    got = BucketedScheduler._order_by_length(rs, device=cuda)
+    want = BucketedScheduler._order_by_length(rs, device="cpu")
+    assert [r.request_id for r in got] == [r.request_id for r in want]
+
+
+@pytest.mark.parametrize("n_tokens", [8, 100, 4096])
+def test_moe_pallas_dispatch_permutation_on_the_card(cuda, n_tokens):
+    """The kernels' dispatch permutation is the stable argsort's."""
+    from repro_torch.models import moe
+    e = torch.from_numpy(np.random.default_rng(n_tokens).integers(
+        0, 32, 8 * n_tokens).astype(np.int32)).to(cuda)
+    iota = torch.arange(e.numel(), dtype=torch.int32, device=cuda)
+    ke, kp = moe._sort_assignments(e, iota, "pallas")
+    xe, xp = moe._sort_assignments(e, iota, "xla")
+    assert torch.equal(ke, xe) and torch.equal(kp.long(), xp.long())
+
+
+@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
+def test_engine_greedy_on_the_card_matches_the_cpu(cuda, sort_impl):
+    """Smoke config in float32, TF32 off: the same engine's greedy tokens
+    on the card and on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Engine
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    lm = init_lm(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, cfg.vocab_size, n))
+               for n in (3, 17, 9, 30)]
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = Engine(cfg, lm, max_seq=64, sort_impl=sort_impl).generate(
+            prompts, max_new=8)
+        got = Engine(cfg, lm.to(cuda), max_seq=64,
+                     sort_impl=sort_impl).generate(prompts, max_new=8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert got == want

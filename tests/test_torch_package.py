@@ -63,7 +63,11 @@ def test_importing_the_port_loads_no_jax():
                 "repro_torch.runtime.sortfault, "
                 "repro_torch.runtime.chaos, repro_torch.parallel, "
                 "repro_torch.parallel.compat, repro_torch.core.bitonic, "
-                "repro_torch.core.distributed; "
+                "repro_torch.core.distributed, repro_torch.core.oets, "
+                "repro_torch.models, repro_torch.models.moe, "
+                "repro_torch.serve, repro_torch.launch.serve, "
+                "repro_torch.parallel.sharding, repro_torch.data.bucketing, "
+                "repro_torch.data.loader; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'repro')]; print(bad); "
                 "sys.exit(1 if bad else 0)"])
@@ -78,7 +82,11 @@ def test_entry_points_default_to_the_card():
         chunked_sort_packed, chunked_sort_words, sorted_packed
     from repro_torch.core.distributed import distributed_chunked_sort_lex
     from repro_torch.interop import run_to_device
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_cache, init_lm
     from repro_torch.pipeline import sorted_run
+    from repro_torch.serve import BucketedScheduler, Request
+    cfg = get_smoke_config("granite-moe-1b-a400m")
     words = ["pear", "fig", "apple", "kiwi"]
     keys = np.array([[1], [2]], np.uint32)
     if torch.cuda.is_available():
@@ -93,7 +101,11 @@ def test_entry_points_default_to_the_card():
                  lambda: chunked_sort_packed(keys),
                  lambda: sorted_run(keys),
                  lambda: run_to_device(np.ones(2, np.int32), keys),
-                 lambda: distributed_chunked_sort_lex(keys)):
+                 lambda: distributed_chunked_sort_lex(keys),
+                 lambda: init_lm(cfg),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: BucketedScheduler._order_by_length(
+                     [Request(0, [1]), Request(1, [2])])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -162,5 +174,41 @@ def test_mesh_modules_export_the_reference_names(module):
     port = importlib.import_module(f"repro_torch.{module}")
     for name in ref.__all__:
         if name in _MESH_MODULES[module]:
+            continue
+        assert name in port.__all__ and hasattr(port, name), name
+
+
+# the reference modules of the serving path and the names of each that wait
+# for ROADMAP A13: the PartitionSpec helpers and the Mamba/hybrid pieces
+_SERVING_MODULES = {
+    "core.oets": (),
+    "configs": (),
+    "data": (),
+    "data.bucketing": (),
+    "data.loader": (),
+    "data.synthetic": (),
+    "parallel.sharding": ("spec_for",),
+    "models": (),
+    "models.config": (),
+    "models.param": ("PLeaf", "finalize", "tree_specs"),
+    "models.layers": (),
+    "models.attention": (),
+    "models.moe": (),
+    "models.blocks": ("init_mamba_block", "mamba_block"),
+    "models.model": ("hybrid_groups",),
+    "serve": (),
+    "serve.engine": (),
+    "serve.scheduler": (),
+    "launch.serve": (),
+}
+
+
+@pytest.mark.parametrize("module", sorted(_SERVING_MODULES))
+def test_serving_modules_export_the_reference_names(module):
+    import importlib
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    for name in ref.__all__:
+        if name in _SERVING_MODULES[module]:
             continue
         assert name in port.__all__ and hasattr(port, name), name
