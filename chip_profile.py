@@ -75,15 +75,17 @@ checkout's phase the same way:
 
     python3 chip_profile.py e2e
 
-With the argument ``serve`` it builds Granite-MoE 1B at its published
-width (``chip_smoke.granite_full_width``) and traces one prefill batch of
-8 x 512 tokens and then 16 decode steps of the engine with the kernels'
-dispatch (``sort_impl='pallas'``): for each, the device's busy time, idle
-share and top device ops by time, the device events and the port's kernel
-launches a decode step, and the host microseconds a decode step takes to
-return (before its synchronize) beside its whole time (``serve_cost``):
+With the argument ``serve`` it builds Granite-MoE 1B — or, with
+``--arch``, another token arch — at its published width
+(``chip_smoke.full_width``) and traces one prefill batch of 8 x 512 tokens
+and then 16 decode steps of the engine with the kernels' dispatch
+(``sort_impl='pallas'``): for each, the device's busy time, idle share and
+top device ops by time, the device events and the port's kernel launches a
+decode step, and the host microseconds a decode step takes to return
+(before its synchronize) beside its whole time (``serve_cost``):
 
     python3 chip_profile.py serve
+    python3 chip_profile.py serve --arch minicpm3-4b
 
 It exits non-zero without a card. Nothing of ``jax`` or ``repro`` is
 imported.
@@ -552,15 +554,16 @@ def profile(name, words, device):
     trace(f"{name} sorted_packed", device_part, TRACED)
 
 
-def serve_cost(device, steps: int = 16):
-    """The serving path's trace: one full-width prefill batch, then
-    ``steps`` decode steps."""
+def serve_cost(device, arch: str, steps: int = 16):
+    """The serving path's trace: one full-width prefill batch of ``arch``,
+    then ``steps`` decode steps."""
     import torch
     from chip_smoke import (DISPATCH_SEQ, SERVE_BATCH, SERVE_MAX_SEQ,
-                            granite_full_width, launch_counts, used)
+                            full_width, launch_counts, used)
+    from repro_torch.models import init_cache
     from repro_torch.serve import Engine
     from repro_torch.serve.engine import _pad_cache_to
-    cfg, lm, _ = granite_full_width(device)
+    cfg, lm, _ = full_width(device, arch)
     engine = Engine(cfg, lm, max_seq=SERVE_MAX_SEQ, sort_impl="pallas")
     engine.generate([[1, 2, 3]], max_new=2)              # warm
     gen = torch.Generator(device=device).manual_seed(0)
@@ -568,10 +571,11 @@ def serve_cost(device, steps: int = 16):
                            generator=gen, device=device)
     mask = torch.ones_like(tokens, dtype=torch.int32)
     with torch.inference_mode():
-        trace(f"serve prefill {SERVE_BATCH} x {DISPATCH_SEQ}",
+        trace(f"serve {cfg.name} prefill {SERVE_BATCH} x {DISPATCH_SEQ}",
               lambda: engine._prefill(tokens, mask), 1)
         logits, cache = engine._prefill(tokens, mask)
-        cache = _pad_cache_to(cache, SERVE_MAX_SEQ)
+        axes = init_cache(cfg, SERVE_BATCH, DISPATCH_SEQ, abstract=True)[1]
+        cache = _pad_cache_to(cache, axes, SERVE_MAX_SEQ)
         state = {"tok": logits[:, -1].argmax(-1)[:, None],
                  "cur": torch.full((SERVE_BATCH,), DISPATCH_SEQ,
                                    dtype=torch.int32, device=device)}
@@ -595,7 +599,8 @@ def serve_cost(device, steps: int = 16):
               f" us a step to return, {statistics.median(whole):.1f} us a "
               f"step with its synchronize (medians of {steps}); the port's "
               f"kernel launches a step {used(runs)}")
-        trace(f"serve decode step (batch {SERVE_BATCH})", step, steps)
+        trace(f"serve {cfg.name} decode step (batch {SERVE_BATCH})", step,
+              steps)
 
 
 def main() -> int:
@@ -632,8 +637,10 @@ def main() -> int:
         profile_mesh(synthetic_words(DS2.n_words, seed=DS2.seed), device)
         print(nvidia_smi())
         return 0
-    if sys.argv[1:] == ["serve"]:
-        serve_cost(device)
+    if sys.argv[1:2] == ["serve"]:
+        from chip_smoke import SERVE_ARCH
+        args = sys.argv[2:]
+        serve_cost(device, args[1] if args[:1] == ["--arch"] else SERVE_ARCH)
         print(nvidia_smi())
         return 0
     if sys.argv[1:] == ["e2e"]:

@@ -88,7 +88,20 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      each of the 24 layers of an 8 x 512 prefill against the stable
      argsort's of the same assignments and that prefill's logits against
      the 'xla' dispatch's, and the engine's greedy tokens on the card
-     against the CPU's at the smoke config in float32 (``phase_serve``).
+     against the CPU's at the smoke config in float32 (``phase_serve``);
+  7. families — the MLA and state-space families (``phase_families``):
+     MiniCPM3-4B (MLA) and Zamba2-1.2B (Mamba2 and the shared-block
+     hybrid) at their published widths and depths, bf16 weights drawn on
+     the card, serving the same wave (every request answered with 16
+     tokens, the admission on B1), Zamba2's cache bytes against a GQA
+     cache of its depth; deepseek-v2 at its published width with its depth
+     cut to 3 layers (its dense layer and two MoE layers of 160 experts
+     top-6) through one 8 x 512 prefill with each dispatch (the kernels'
+     permutation at both MoE layers against the stable argsort's, logits
+     within the phase-6 tolerance) and 4 decode steps (B1 dispatches of 48
+     assignments); and the engine's greedy tokens at the smoke configs of
+     minicpm3-4b, deepseek-v2-236b, mamba2-370m and zamba2-1.2b on the card
+     against the CPU's, the batch holding a 2-token prompt.
 
 Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
 so the host's time per call counts where it is longer) and ``device_ms``
@@ -181,6 +194,17 @@ DISPATCH_SEQ = 512
 DISPATCH_LOGIT_ATOL = 0.125
 # the kernels of the serving path: the admission sort and the MoE dispatch
 SERVE_PATH = ("oets_rows_lex", "bitonic_rows_lex", "merge_adjacent_lex")
+# phase 6's smoke prompt lengths, and a 2-token prompt whose Mamba2 conv
+# window is the batch's padding rows (the reference's wrapped slice)
+SMOKE_PROMPTS = (3, 17, 9, 30, 2)
+# phase 7: the full-width MLA and hybrid archs, deepseek-v2 cut to its
+# dense layer and two MoE layers, and the archs held card against CPU
+FAMILY_ARCHS = ("minicpm3-4b", "zamba2-1.2b")
+DEEPSEEK_ARCH = "deepseek-v2-236b"
+DEEPSEEK_LAYERS = 3
+DEEPSEEK_DECODE_STEPS = 4
+SMOKE_ARCHS = ("minicpm3-4b", "deepseek-v2-236b", "mamba2-370m",
+               "zamba2-1.2b")
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -2211,14 +2235,20 @@ def timed(fn, times: list):
     return run
 
 
-def granite_full_width(device):
-    """Granite-MoE 1B at its published dimensions (bfloat16) on
-    ``device``, weights drawn from a seeded ``torch.Generator``; returns
-    ``(cfg, lm, seconds)``."""
+def full_width(device, arch: str = SERVE_ARCH, n_layers: int = 0):
+    """``arch`` at its published dimensions (bfloat16) on ``device`` —
+    its depth cut to ``n_layers`` where given — weights drawn from a
+    seeded ``torch.Generator``, its parameters counted on the ``meta``
+    device first; returns ``(cfg, lm, seconds)``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_lm
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    n = sum(p.numel() for p in init_lm(cfg, device="meta").parameters())
+    print(f"[model] {cfg.name}: {n} parameters counted on meta "
+          f"({n * 2 / 1e9:.2f} GB in bf16)")
     t0 = time.perf_counter()
     lm = init_lm(cfg, seed=0, device=device)
     torch.cuda.synchronize()
@@ -2249,29 +2279,18 @@ def recorded_dispatches():
     return seen, undo
 
 
-def phase_serve(report, device):
-    """Serve Granite-MoE 1B at full width through the scheduler and the
-    engine with the kernels' dispatch ('pallas'), then check the admission
-    permutation, the dispatch and the engine against the plain versions."""
-    import numpy as np
+def serve_wave(report, engine, path, tag="serve"):
+    """Serve the wave (:func:`serve_prompts`, 16 new tokens each) through
+    ``BucketedScheduler(engine).run`` with every launch counter read around
+    it; require every request answered with 16 tokens and each kernel of
+    ``path`` launched; print tokens/s, prefill and decode medians, padding
+    waste and peak memory. The timed wrappers are taken off the engine
+    again: they refer to it, and the cycle would keep its model on the card
+    after the caller drops it."""
     import torch
-    from repro_torch.configs import get_smoke_config
     from repro_torch.data import plan_buckets
-    from repro_torch.models import forward, init_lm
-    from repro_torch.parallel.sharding import Rules
-    from repro_torch.serve import BucketedScheduler, Engine, Request
-    t_phase = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg, lm, t_init = granite_full_width(device)
-    n_params = sum(p.numel() for p in lm.parameters())
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
-          f"{n_params} parameters in {lm.embed.dtype}, drawn on the card in "
-          f"{t_init:.2f} s")
-
-    # 1. serve 32 requests
-    engine = Engine(cfg, lm, max_seq=SERVE_MAX_SEQ, sort_impl="pallas")
+    from repro_torch.serve import BucketedScheduler, Request
+    cfg = engine.cfg
     engine.generate([[1, 2, 3]], max_new=2)            # cuBLAS and caches
     times = {"prefill": [], "decode": []}
     engine._prefill = timed(engine._prefill, times["prefill"])
@@ -2281,22 +2300,25 @@ def phase_serve(report, device):
     sched = BucketedScheduler(engine, batch_size=SERVE_BATCH)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    results, runs = launch_counts(lambda: sched.run(reqs))
+    try:
+        results, runs = launch_counts(lambda: sched.run(reqs))
+    finally:
+        del engine._prefill, engine._decode
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     for kname, c in runs.items():
         report.rows[kname]["launches"] += c
     if sorted(r.request_id for r in results) != list(range(len(reqs))) \
             or any(len(r.tokens) != SERVE_MAX_NEW for r in results):
-        raise AssertionError("serve: not every request was answered with "
+        raise AssertionError(f"{tag}: not every request was answered with "
                              f"{SERVE_MAX_NEW} tokens")
-    for kname in SERVE_PATH:
+    for kname in path:
         if runs[kname] == 0:
-            raise AssertionError(f"serve: {kname} was never launched")
+            raise AssertionError(f"{tag}: {kname} was never launched")
     tokens = sum(len(r.tokens) for r in results)
     bounds = plan_buckets([len(p) for p in prompts], sched.n_buckets)
     waste = BucketedScheduler.padding_stats(reqs, bounds)
-    print(f"[serve] {len(results)} requests, {tokens} tokens in "
+    print(f"[{tag}] {cfg.name}: {len(results)} requests, {tokens} tokens in "
           f"{wall:.3f} s ({tokens / wall:.1f} tokens/s); bounds {bounds}; "
           f"{len(times['prefill'])} prefill batches, median "
           f"{statistics.median(times['prefill']):.2f} ms a batch; "
@@ -2305,6 +2327,98 @@ def phase_serve(report, device):
           f"waste global {waste['global_waste']:.4f} bucketed "
           f"{waste['bucketed_waste']:.4f}; max_memory_allocated {peak} B; "
           f"launches {used(runs)}")
+
+
+def check_dispatch(report, cfg, lm, device, tag="serve"):
+    """One full-width prefill batch of ``SERVE_BATCH x DISPATCH_SEQ`` seeded
+    tokens with the 'xla' and the 'pallas' dispatch: the kernels'
+    permutation at every MoE layer against the stable argsort's of the
+    same assignments, and the two forwards' logits within
+    ``DISPATCH_LOGIT_ATOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.parallel.sharding import Rules
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (SERVE_BATCH, DISPATCH_SEQ))).to(device)}
+    logits = {}
+    for impl in ("xla", "pallas"):
+        ms = []
+        with torch.inference_mode():
+            out, runs = launch_counts(lambda: timed(forward, ms)(
+                cfg, lm, batch, Rules(), sort_impl=impl))
+        if impl == "pallas":
+            for kname, c in runs.items():
+                report.rows[kname]["launches"] += c
+        logits[impl] = out[0].float()
+        del out
+        print(f"[{tag}] prefill {SERVE_BATCH} x {DISPATCH_SEQ} with "
+              f"sort_impl={impl!r}: {ms[0]:.2f} ms; launches {used(runs)}")
+    seen, undo = recorded_dispatches()
+    try:
+        with torch.inference_mode():
+            forward(cfg, lm, batch, Rules(), sort_impl="pallas")
+    finally:
+        undo()
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    if len(seen) != n_moe:
+        raise AssertionError(f"{tag}: expected one sort a MoE layer")
+    for layer, (got, want) in enumerate(seen):
+        if not all(torch.equal(g.long(), w.long())
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"{tag}: MoE layer {layer}'s permutation "
+                                 "differs between 'pallas' and 'xla'")
+    diff = float((logits["pallas"] - logits["xla"]).abs().max())
+    scale = float(logits["xla"].abs().max())
+    print(f"[{tag}] dispatch: {n_moe} MoE layers' permutations of "
+          f"{SERVE_BATCH * DISPATCH_SEQ * cfg.moe.top_k} assignments over "
+          f"{cfg.moe.n_experts} experts identical to the stable argsort's; "
+          f"logits max abs difference {diff} (max |logit| {scale}, "
+          f"tolerance {DISPATCH_LOGIT_ATOL})")
+    if not diff <= DISPATCH_LOGIT_ATOL:
+        raise AssertionError(f"{tag}: the logits differ past the bf16 "
+                             "tolerance")
+
+
+def check_engine_card_against_cpu(arch, lengths, device):
+    """The engine's greedy tokens at ``arch``'s smoke config in float32 on
+    the card against the CPU's (TF32 off), the MoE dispatch on the
+    kernels."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Engine
+    small = get_smoke_config(arch)
+    cpu_lm = init_lm(small, seed=0, device="cpu")
+    prompts = [list(range(1, 1 + n)) for n in lengths]
+    want = Engine(small, cpu_lm, max_seq=64, sort_impl="pallas").generate(
+        prompts, max_new=8)
+    got = Engine(small, cpu_lm.to(device), max_seq=64,
+                 sort_impl="pallas").generate(prompts, max_new=8)
+    if got != want:
+        raise AssertionError(f"engine {arch}: the card's greedy tokens {got} "
+                             f"differ from the CPU's {want}")
+
+
+def phase_serve(report, device):
+    """Serve Granite-MoE 1B at full width through the scheduler and the
+    engine with the kernels' dispatch ('pallas'), then check the admission
+    permutation, the dispatch and the engine against the plain versions."""
+    import torch
+    from repro_torch.serve import BucketedScheduler, Engine
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, lm, t_init = full_width(device)
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+          f"{n_params} parameters in {lm.embed.dtype}, drawn on the card in "
+          f"{t_init:.2f} s")
+
+    # 1. serve 32 requests
+    engine = Engine(cfg, lm, max_seq=SERVE_MAX_SEQ, sort_impl="pallas")
+    serve_wave(report, engine, SERVE_PATH)
 
     # 2. the admission permutation on the card against the CPU
     for n in ADMISSION_QUEUES:
@@ -2321,63 +2435,100 @@ def phase_serve(report, device):
         print(f"[serve] admission of {n} requests: permutation equal to the "
               f"CPU's; launches {used(runs)}")
 
-    # 3. the dispatch: one full-width prefill batch, 'pallas' and 'xla'; the
-    # kernels' permutation at every layer against the stable argsort's of
-    # the same assignments, and the two forwards' logits
-    rng = np.random.default_rng(1)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        1, cfg.vocab_size, (SERVE_BATCH, DISPATCH_SEQ))).to(device)}
-    logits = {}
-    for impl in ("xla", "pallas"):
-        ms = []
-        with torch.inference_mode():
-            out, runs = launch_counts(lambda: timed(forward, ms)(
-                cfg, lm, batch, Rules(), sort_impl=impl))
-        if impl == "pallas":
-            for kname, c in runs.items():
-                report.rows[kname]["launches"] += c
-        logits[impl] = out[0].float()
-        print(f"[serve] prefill {SERVE_BATCH} x {DISPATCH_SEQ} with "
-              f"sort_impl={impl!r}: {ms[0]:.2f} ms; launches {used(runs)}")
-    seen, undo = recorded_dispatches()
-    try:
-        with torch.inference_mode():
-            forward(cfg, lm, batch, Rules(), sort_impl="pallas")
-    finally:
-        undo()
-    if len(seen) != cfg.n_layers:
-        raise AssertionError("dispatch: expected one sort a layer")
-    for layer, (got, want) in enumerate(seen):
-        if not all(torch.equal(g.long(), w.long())
-                   for g, w in zip(got, want)):
-            raise AssertionError(f"dispatch: layer {layer}'s permutation "
-                                 "differs between 'pallas' and 'xla'")
-    diff = float((logits["pallas"] - logits["xla"]).abs().max())
-    scale = float(logits["xla"].abs().max())
-    print(f"[serve] dispatch: {cfg.n_layers} layers' permutations of "
-          f"{SERVE_BATCH * DISPATCH_SEQ * cfg.moe.top_k} assignments "
-          f"identical to the stable argsort's; logits max abs difference "
-          f"{diff} (max |logit| {scale}, tolerance {DISPATCH_LOGIT_ATOL})")
-    if not diff <= DISPATCH_LOGIT_ATOL:
-        raise AssertionError("dispatch: the logits differ past the bf16 "
-                             "tolerance")
-    del lm, engine, logits, seen
+    # 3. the dispatch: one full-width prefill batch, 'pallas' and 'xla'
+    check_dispatch(report, cfg, lm, device)
+    del lm, engine
     torch.cuda.empty_cache()
 
     # 4. the engine on the card against the CPU, smoke config in float32
-    small = get_smoke_config(SERVE_ARCH)
-    cpu_lm = init_lm(small, seed=0, device="cpu")
-    prompts = [list(range(1, 1 + n)) for n in (3, 17, 9, 30)]
-    want = Engine(small, cpu_lm, max_seq=64, sort_impl="pallas").generate(
-        prompts, max_new=8)
-    got = Engine(small, cpu_lm.to(device), max_seq=64,
-                 sort_impl="pallas").generate(prompts, max_new=8)
-    if got != want:
-        raise AssertionError(f"engine: the card's greedy tokens {got} differ "
-                             f"from the CPU's {want}")
+    check_engine_card_against_cpu(SERVE_ARCH, SMOKE_PROMPTS[:4], device)
     print(f"[serve] engine at the smoke config in float32: greedy tokens "
           f"equal on the card and the CPU")
     print(f"[serve] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase 7 ----------------------------------------------------------------
+
+def cache_bytes(cache) -> int:
+    return sum(leaf.numel() * leaf.element_size()
+               for leaves in cache.values() for leaf in leaves.values())
+
+
+def phase_families(report, device):
+    """The MLA and state-space families on the card: MiniCPM3-4B and
+    Zamba2-1.2B at their published widths and depths serving the wave;
+    deepseek-v2 at its published width, its depth cut to its dense layer
+    and two MoE layers, through one 8 x 512 prefill with each dispatch and
+    a few decode steps; the four archs' smoke configs in float32 on the
+    card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache
+    from repro_torch.serve import Engine
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1-2. MiniCPM3-4B and Zamba2-1.2B serve the wave
+    for arch in FAMILY_ARCHS:
+        cfg, lm, t_init = full_width(device, arch)
+        print(f"[families] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.family} / {cfg.attn}, drawn on the card "
+              f"in {t_init:.2f} s")
+        serve_wave(report, Engine(cfg, lm, max_seq=SERVE_MAX_SEQ,
+                                  sort_impl="pallas"),
+                   ("oets_rows_lex",), tag="families")
+        held, _ = init_cache(cfg, SERVE_BATCH, SERVE_MAX_SEQ, abstract=True)
+        gqa = (2 * cfg.n_layers * SERVE_BATCH * SERVE_MAX_SEQ
+               * cfg.n_kv_heads * cfg.head_dim * 2)
+        print(f"[families] {cfg.name}: decode cache at batch {SERVE_BATCH}, "
+              f"max_seq {SERVE_MAX_SEQ}: {cache_bytes(held)} B "
+              f"({', '.join(f'{n}: {sorted(l)}' for n, l in held.items())}) "
+              f"against {gqa} B for a GQA cache of {cfg.n_layers} layers of "
+              f"{cfg.n_kv_heads} x {cfg.head_dim}")
+        del lm
+        torch.cuda.empty_cache()
+
+    # 3. deepseek-v2: MLA + 160 experts top-6 at full width, depth cut
+    published = get_config(DEEPSEEK_ARCH).n_layers
+    cfg, lm, t_init = full_width(device, DEEPSEEK_ARCH, DEEPSEEK_LAYERS)
+    print(f"[families] {cfg.name}: n_layers {published} → {cfg.n_layers} "
+          f"(first_dense {cfg.moe.first_dense} + "
+          f"{cfg.n_layers - cfg.moe.first_dense} MoE), d_model "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+          f"drawn on the card in {t_init:.2f} s")
+    check_dispatch(report, cfg, lm, device, tag="families")
+    engine = Engine(cfg, lm, max_seq=SERVE_MAX_SEQ, sort_impl="pallas")
+    engine.generate([[1, 2, 3]], max_new=2)
+    times = []
+    engine._decode = timed(engine._decode, times)
+    prompts = [list(range(1, 17))] * SERVE_BATCH
+    try:
+        out, runs = launch_counts(lambda: engine.generate(
+            prompts, max_new=DEEPSEEK_DECODE_STEPS + 1))
+    finally:
+        del engine._decode
+    for kname, c in runs.items():
+        report.rows[kname]["launches"] += c
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    if runs["oets_rows_lex"] != DEEPSEEK_DECODE_STEPS * n_moe \
+            or any(len(t) != DEEPSEEK_DECODE_STEPS + 1 for t in out):
+        raise AssertionError(f"families: {DEEPSEEK_DECODE_STEPS} decode steps "
+                             f"of {n_moe} MoE layers made "
+                             f"{runs['oets_rows_lex']} B1 dispatches")
+    print(f"[families] {cfg.name} decode: {DEEPSEEK_DECODE_STEPS} steps of "
+          f"{SERVE_BATCH * cfg.moe.top_k} assignments a MoE layer, median "
+          f"{statistics.median(times):.2f} ms a step; launches {used(runs)}")
+    del lm, engine
+    torch.cuda.empty_cache()
+
+    # 4. the smoke configs on the card against the CPU
+    for arch in SMOKE_ARCHS:
+        check_engine_card_against_cpu(arch, SMOKE_PROMPTS, device)
+        print(f"[families] engine {arch} at the smoke config in float32, "
+              f"prompts of {SMOKE_PROMPTS} tokens: greedy tokens equal on "
+              "the card and the CPU")
+    print(f"[families] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def synthetic_soak_words():
@@ -2419,6 +2570,7 @@ def main() -> int:
     phase_partition_and_repairs(report, device, words["DS2"], big_words)
     phase_mesh(report, device, words["DS2"], big_words)
     phase_serve(report, device)
+    phase_families(report, device)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

@@ -107,8 +107,10 @@ def lm_from_reference(cfg, params, device="cuda"):
     reference's weights ``params`` (``repro.models.init_lm``'s nested dict,
     each leaf as a numpy array; bfloat16 leaves are taken). The stacked
     'first' and 'blocks' leaves are split along their layer axis into the
-    LM's per-layer blocks; a tied-embeddings config has no 'head'. Every
-    weight keeps its dtype; a missing or extra leaf raises."""
+    LM's per-layer blocks (Mamba2 layers' ``ln`` and ``mixer`` as MLA's
+    and GQA's ``attn`` leaves); the hybrid's 'shared' block is one block,
+    not a stack. A tied-embeddings config has no 'head'. Every weight keeps
+    its dtype; a missing or extra leaf raises."""
     from .models.model import init_lm       # the models import interop
     dev = resolve_device(device)
     state = {}

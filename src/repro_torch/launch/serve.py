@@ -3,12 +3,15 @@ behind the paper's length-bucketed scheduler, on synthetic requests and
 random weights from a seed.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
 
-It runs the published configuration unless ``--smoke`` is given, on the
-card unless ``--device cpu`` is given (without a card the default raises).
-``--sort-impl pallas`` sends the MoE dispatch through the hand-written
-kernels.
+Every token arch serves: GQA, MLA, MoE, the Mamba2 SSM and the Zamba2
+hybrid. The two frames archs (qwen2-vl-2b, musicgen-large) are refused, as
+the reference's launcher refuses them. It runs the published configuration
+unless ``--smoke`` is given, on the card unless ``--device cpu`` is given
+(without a card the default raises). ``--sort-impl pallas`` sends the MoE
+dispatch through the hand-written kernels.
 """
 
 from __future__ import annotations

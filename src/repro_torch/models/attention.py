@@ -1,6 +1,7 @@
 """Attention — the counterpart of ``repro.models.attention``: grouped-query
-attention (GQA; llama3, glm4, nemotron, granite, ...) with its training,
-prefill (cache-building) and decode (cache-consuming) paths.
+attention (GQA; llama3, glm4, nemotron, granite, ...) and multi-head latent
+attention (MLA; deepseek-v2, minicpm3), each with its training, prefill
+(cache-building) and decode (cache-consuming) paths.
 
 The math stays in the reference's plain ops — einsums and a masked softmax
 in float32 — so both packages compute the same numbers; no kernel computes
@@ -9,8 +10,12 @@ take ``finfo(float32).min``, not ``-inf``; the streaming path
 (:func:`_gqa_chunked`) uses ``-inf`` with a finite guard, as the reference
 does.
 
-Multi-head latent attention (MLA: minicpm3, deepseek-v2) waits for ROADMAP
-A13 and raises ``NotImplementedError``.
+MLA caches the compressed latent ``ckv`` and one shared rope key ``kr`` a
+token. Prefill takes the naive path (per-head keys and values materialised
+from the latent), decode the absorbed one (queries projected into the
+latent, attention against the cache as it is), each as the reference has
+it: the two round differently in bfloat16, so one path for both would give
+other tokens than the reference's.
 
 A decode step writes the new entry into the cache tensors *in place* and
 returns them: the caller's cache is the step's cache. Rows whose index is
@@ -24,21 +29,13 @@ from torch import nn
 
 from ..parallel.sharding import Rules, constrain
 from .config import ModelConfig
-from .layers import apply_rope
+from .layers import Norm, apply_rope, rmsnorm
 from .param import Builder
 
-__all__ = ["Attention", "init_attention", "attention", "init_attn_cache",
-           "check_attention"]
+__all__ = ["Attention", "MLA", "init_attention", "attention",
+           "init_attn_cache"]
 
 _NEG = torch.finfo(torch.float32).min
-
-
-def check_attention(cfg: ModelConfig):
-    """Raise for the attention families the port has not ported."""
-    if cfg.attn == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention (MLA) is not ported "
-            "yet (ROADMAP A13)")
 
 
 def _softmax_attend(scores, mask, dtype):
@@ -129,15 +126,11 @@ class Attention(nn.Module):
 
     def __init__(self, b: Builder, cfg: ModelConfig):
         super().__init__()
-        check_attention(cfg)
         dm, h, k, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.wq = b.param((dm, h, d))
         self.wk = b.param((dm, k, d))
         self.wv = b.param((dm, k, d))
         self.wo = b.param((h, d, dm))
-
-
-init_attention = Attention
 
 
 def _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
@@ -184,17 +177,106 @@ def _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
     return out, new_cache
 
 
+# ---------------- MLA ----------------
+
+class MLA(nn.Module):
+    """MLA weights: ``wkv_a`` ``(d_model, kv_lora + qk_rope)``, ``kv_norm``,
+    ``wkv_b`` ``(kv_lora, heads, qk_nope + v_head)``, ``wo`` ``(heads,
+    v_head, d_model)``, and the queries' ``wq_a`` ``(d_model, q_lora)``,
+    ``q_norm`` and ``wq_b`` ``(q_lora, heads, qk_nope + qk_rope)`` — or,
+    with ``q_lora`` 0, ``wq`` ``(d_model, heads, qk_nope + qk_rope)``."""
+
+    def __init__(self, b: Builder, cfg: ModelConfig):
+        super().__init__()
+        m = cfg.mla
+        dm, h = cfg.d_model, cfg.n_heads
+        self.wkv_a = b.param((dm, m.kv_lora + m.qk_rope))
+        self.kv_norm = Norm(b, m.kv_lora)
+        self.wkv_b = b.param((m.kv_lora, h, m.qk_nope + m.v_head))
+        self.wo = b.param((h, m.v_head, dm))
+        if m.q_lora:
+            self.wq_a = b.param((dm, m.q_lora))
+            self.q_norm = Norm(b, m.q_lora)
+            self.wq_b = b.param((m.q_lora, h, m.qk_nope + m.qk_rope))
+        else:
+            self.wq = b.param((dm, h, m.qk_nope + m.qk_rope))
+
+
+def _mla_queries(cfg, p, x, cos, sin):
+    m = cfg.mla
+    dt = x.dtype
+    if m.q_lora:
+        cq = rmsnorm(p.q_norm, x @ p.wq_a.to(dt), cfg.norm_eps)
+        q = torch.einsum("btq,qhk->bthk", cq, p.wq_b.to(dt))
+    else:
+        q = torch.einsum("btd,dhk->bthk", x, p.wq.to(dt))
+    qn, qr = q[..., :m.qk_nope], q[..., m.qk_nope:]
+    return qn, apply_rope(qr, cos, sin)
+
+
+def _mla(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
+    m = cfg.mla
+    T = x.shape[1]
+    dt = x.dtype
+    scale = (m.qk_nope + m.qk_rope) ** -0.5
+
+    qn, qr = _mla_queries(cfg, p, x, cos, sin)
+    qn = constrain(qn, rules, "batch", "seq", "act_heads", None)
+
+    ckv_full = x @ p.wkv_a.to(dt)
+    ckv, kr = ckv_full[..., :m.kv_lora], ckv_full[..., m.kv_lora:]
+    ckv = rmsnorm(p.kv_norm, ckv, cfg.norm_eps)
+    kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]  # one shared head
+
+    wkv_b = p.wkv_b.to(dt)
+    if cache is not None:
+        # absorbed decode: attend in the compressed latent space
+        ckv_c = _cache_write(cache["ckv"], ckv, cur_index)
+        kr_c = _cache_write(cache["kr"], kr, cur_index)
+        mask = _decode_mask(ckv_c.shape[1], cur_index, 2, x.device)
+        new_cache = {"ckv": ckv_c, "kr": kr_c}
+        ckv_all, kr_all = ckv_c.to(dt), kr_c.to(dt)
+        w_uk, w_uv = wkv_b[..., :m.qk_nope], wkv_b[..., m.qk_nope:]
+        q_lat = torch.einsum("bthn,chn->bthc", qn, w_uk)
+        scores = (torch.einsum("bthc,bsc->bhts", q_lat, ckv_all)
+                  + torch.einsum("bthr,bsr->bhts", qr, kr_all)) * scale
+        probs = _softmax_attend(scores, mask, dt)
+        ctx_lat = torch.einsum("bhts,bsc->bthc", probs, ckv_all)
+        ctx = torch.einsum("bthc,chv->bthv", ctx_lat, w_uv)
+    else:
+        # naive train / prefill: per-head keys and values from the latent
+        kv = torch.einsum("btc,chn->bthn", ckv, wkv_b)
+        kn, v = kv[..., :m.qk_nope], kv[..., m.qk_nope:]
+        mask = _causal_mask(T, T, x.device)
+        scores = (torch.einsum("bthn,bshn->bhts", qn, kn)
+                  + torch.einsum("bthr,bsr->bhts", qr, kr)) * scale
+        probs = _softmax_attend(scores, mask, dt)
+        ctx = torch.einsum("bhts,bshv->bthv", probs, v)
+        new_cache = {"ckv": ckv, "kr": kr} if return_cache else None
+    out = torch.einsum("bthv,hvm->btm", ctx, p.wo.to(dt))
+    return out, new_cache
+
+
+# ---------------- public API ----------------
+
+def init_attention(b: Builder, cfg: ModelConfig) -> nn.Module:
+    return MLA(b, cfg) if cfg.attn == "mla" else Attention(b, cfg)
+
+
 def attention(cfg: ModelConfig, p, x, cos, sin, rules: Rules,
               cache=None, cur_index=None, return_cache: bool = False):
     """Returns ``(out, new_cache)``. ``cache`` given => decode (T == 1);
     ``return_cache`` => prefill (the cache is built from this forward)."""
-    check_attention(cfg)
-    return _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache)
+    fn = _mla if cfg.attn == "mla" else _gqa
+    return fn(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache)
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, seq: int, dtype):
     """Per-layer cache shapes and dtypes (without the layer axis)."""
-    check_attention(cfg)
+    if cfg.attn == "mla":
+        m = cfg.mla
+        return {"ckv": ((batch, seq, m.kv_lora), dtype),
+                "kr": ((batch, seq, m.qk_rope), dtype)}
     return {
         "k": ((batch, seq, cfg.n_kv_heads, cfg.head_dim), dtype),
         "v": ((batch, seq, cfg.n_kv_heads, cfg.head_dim), dtype),

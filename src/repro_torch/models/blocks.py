@@ -1,8 +1,6 @@
 """Block-level composition — the counterpart of ``repro.models.blocks``:
-the pre-norm transformer block (attention + MLP or MoE).
-
-Mamba2 blocks and the Zamba2 shared-attention hybrid wait for ROADMAP A13.
-"""
+the pre-norm transformer block (GQA or MLA attention, then an MLP or MoE)
+and the Mamba2 block (norm, mixer, residual)."""
 
 from __future__ import annotations
 
@@ -10,13 +8,15 @@ import torch
 from torch import nn
 
 from ..parallel.sharding import Rules, constrain
-from .attention import Attention, attention
+from .attention import attention, init_attention
 from .config import ModelConfig
 from .layers import MLP, Norm, mlp, norm
 from .moe import MoE, moe
 from .param import Builder
+from .ssm import Mamba, mamba_decode, mamba_train
 
-__all__ = ["TransformerBlock", "init_transformer_block", "transformer_block"]
+__all__ = ["TransformerBlock", "init_transformer_block", "transformer_block",
+           "MambaBlock", "init_mamba_block", "mamba_block"]
 
 
 class TransformerBlock(nn.Module):
@@ -27,7 +27,7 @@ class TransformerBlock(nn.Module):
                  d_ff: int | None = None):
         super().__init__()
         self.ln1 = Norm(b, cfg.d_model, cfg.norm_kind)
-        self.attn = Attention(b, cfg)
+        self.attn = init_attention(b, cfg)
         self.ln2 = Norm(b, cfg.d_model, cfg.norm_kind)
         if ffn == "moe":
             self.moe = MoE(b, cfg)
@@ -54,3 +54,27 @@ def transformer_block(cfg: ModelConfig, p, x, cos, sin, rules: Rules,
     else:
         h2 = mlp(p.mlp, h2, cfg.mlp_act, cfg.mlp_gated, rules)
     return x + h2, new_cache, aux
+
+
+class MambaBlock(nn.Module):
+    """``ln`` and the Mamba2 ``mixer``."""
+
+    def __init__(self, b: Builder, cfg: ModelConfig):
+        super().__init__()
+        self.ln = Norm(b, cfg.d_model, cfg.norm_kind)
+        self.mixer = Mamba(b, cfg)
+
+
+init_mamba_block = MambaBlock
+
+
+def mamba_block(cfg: ModelConfig, p, x, rules: Rules, cache=None,
+                return_cache=False, seq_mask=None):
+    """Pre-norm residual Mamba2 block. Returns ``(x, new_cache)``."""
+    h = norm(p.ln, x, cfg.norm_eps, cfg.norm_kind)
+    if cache is not None:
+        h, new_cache = mamba_decode(cfg, p.mixer, h, cache, rules)
+    else:
+        h, new_cache = mamba_train(cfg, p.mixer, h, rules, return_cache,
+                                   seq_mask)
+    return x + h, new_cache

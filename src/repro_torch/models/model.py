@@ -1,24 +1,26 @@
 """LM assembly — the counterpart of ``repro.models.model``: parameter init,
-the full-sequence forward (training loss, prefill) and single-token decode.
+the full-sequence forward (training loss, prefill) and single-token decode,
+for every family of the architecture pool.
 
-:class:`LM` is an ``nn.Module`` that holds one :class:`TransformerBlock` a
-layer in ``ModuleList``s named as the reference's stacks ('first' for the
-leading dense layers of an MoE model, 'blocks'), so ``lm.blocks[i]``'s
-weights are layer ``i`` of the reference's stacked ``params["blocks"]``.
-The reference's functions (``init_lm``, ``forward``, ``decode_step``,
+:class:`LM` is an ``nn.Module`` that holds one block a layer in
+``ModuleList``s named as the reference's stacks ('first' for the leading
+dense layers of an MoE model, 'blocks'), so ``lm.blocks[i]``'s weights are
+layer ``i`` of the reference's stacked ``params["blocks"]``. The hybrid
+(zamba2) also holds ``shared``, one transformer block (one set of weights)
+applied before every group of ``hybrid_period`` Mamba2 layers
+(:func:`hybrid_groups`), each application with its own KV cache. The
+reference's functions (``init_lm``, ``forward``, ``decode_step``,
 ``init_cache``, ``lm_loss``, ``default_positions``) stay as thin functions
-over it, where the reference's ``params`` argument is the ``LM``. Where the
-reference scans a stack, the port loops over its blocks.
+over it, where the reference's ``params`` argument is the ``LM``. Where
+the reference scans a stack, the port loops over its blocks. ``remat`` is
+accepted and has no effect (there is no backward pass without training,
+which comes later).
 
-The ported families: every token or frames architecture with GQA
-attention — dense, MoE, vlm and audio. MLA, SSM and the SSM hybrid raise
-``NotImplementedError`` naming ROADMAP A13 at ``init_lm``, ``forward``,
-``decode_step`` and ``init_cache``; ``remat`` is accepted and has no
-effect (there is no backward pass without training, which comes later).
-
-The decode cache is ``{stack: {"k": (n_layers, B, S, kv_heads, head_dim),
-"v": ...}}``, the reference's layout, and a decode step writes its entry
-into it in place.
+The decode cache is the reference's layout — ``{stack: {"k", "v"}}`` for
+GQA, ``{"ckv", "kr"}`` for MLA, ``{"conv", "ssm"}`` for Mamba2, each leaf
+with a leading layer axis; the hybrid's ``{"shared": {"k", "v"}, "blocks":
+{"conv", "ssm"}}`` — and a decode step writes its entries into it in
+place.
 """
 
 from __future__ import annotations
@@ -30,15 +32,17 @@ from torch import nn
 
 from ..interop import resolve_device
 from ..parallel.sharding import Rules, constrain
-from .attention import check_attention, init_attn_cache
-from .blocks import TransformerBlock, transformer_block
+from .attention import init_attn_cache
+from .blocks import (MambaBlock, TransformerBlock, mamba_block,
+                     transformer_block)
 from .config import ModelConfig
 from .layers import Norm, mrope_angles, norm, rope_angles
 from .param import Builder
+from .ssm import init_ssm_cache
 
 __all__ = [
     "LM", "init_lm", "forward", "lm_loss", "decode_step", "init_cache",
-    "default_positions", "check_family",
+    "default_positions", "hybrid_groups",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -49,32 +53,32 @@ def _dtype(name: str):
     return _DTYPES[name]
 
 
-def check_family(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for a family the port has not ported
-    (MLA attention, SSM, the SSM hybrid: ROADMAP A13)."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (Mamba2 blocks) is not "
-            "ported yet (ROADMAP A13)")
-    check_attention(cfg)
+def hybrid_groups(cfg: ModelConfig):
+    """``[(start, end)]`` Mamba2-layer slices; the shared block precedes
+    each."""
+    period = cfg.hybrid_period
+    return [(s, min(s + period, cfg.n_layers))
+            for s in range(0, cfg.n_layers, period)]
 
 
 def _plan(cfg: ModelConfig):
-    """``[(stack_name, n_layers, kind)]``, kind 'dense' or 'moe'."""
-    check_family(cfg)
+    """``[(stack_name, n_layers, kind)]``, kind 'dense', 'moe' or
+    'mamba'."""
     if cfg.family in ("dense", "vlm", "audio"):
         return [("blocks", cfg.n_layers, "dense")]
     if cfg.family == "moe":
         fd = cfg.moe.first_dense
         plan = [("first", fd, "dense")] if fd else []
         return plan + [("blocks", cfg.n_layers - fd, "moe")]
+    if cfg.family in ("ssm", "hybrid"):
+        return [("blocks", cfg.n_layers, "mamba")]
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
 class LM(nn.Module):
     """The weights of a language model: ``embed`` (token archs),
-    one ``ModuleList`` of blocks a stack, ``final_norm`` and ``head``
-    (unless the embeddings are tied)."""
+    one ``ModuleList`` of blocks a stack, the hybrid's ``shared`` block,
+    ``final_norm`` and ``head`` (unless the embeddings are tied)."""
 
     def __init__(self, cfg: ModelConfig, b: Builder):
         super().__init__()
@@ -82,7 +86,9 @@ class LM(nn.Module):
             self.embed = b.param((cfg.vocab_size, cfg.d_model),
                                  scale=cfg.d_model ** -0.5)
         for name, n, kind in _plan(cfg):
-            if kind == "moe":
+            if kind == "mamba":
+                blocks = [MambaBlock(b, cfg) for _ in range(n)]
+            elif kind == "moe":
                 blocks = [TransformerBlock(b, cfg, ffn="moe")
                           for _ in range(n)]
             else:
@@ -91,6 +97,8 @@ class LM(nn.Module):
                 blocks = [TransformerBlock(b, cfg, ffn="dense", d_ff=d_ff)
                           for _ in range(n)]
             setattr(self, name, nn.ModuleList(blocks))
+        if cfg.family == "hybrid":
+            self.shared = TransformerBlock(b, cfg, ffn="dense")
         self.final_norm = Norm(b, cfg.d_model, cfg.norm_kind)
         if not cfg.tie_embeddings:
             self.head = b.param((cfg.d_model, cfg.vocab_size))
@@ -107,7 +115,6 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     drawn from a ``torch.Generator`` on ``device`` seeded with ``seed``.
     The default device is the card, and it raises where there is none;
     ``device='meta'`` allocates nothing."""
-    check_family(cfg)
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(seed)
@@ -131,8 +138,13 @@ def default_positions(cfg: ModelConfig, batch: int, seq: int, offset=0,
 
 
 def _rope(cfg: ModelConfig, positions):
-    rot = int(cfg.head_dim * cfg.rope_pct)
-    rot -= rot % 2
+    if cfg.attn is None and cfg.family != "hybrid":
+        return None, None
+    if cfg.attn == "mla":
+        rot = cfg.mla.qk_rope
+    else:
+        rot = int(cfg.head_dim * cfg.rope_pct)
+        rot -= rot % 2
     if cfg.rope_kind == "none":
         # degenerate angles: the identity rotation
         z = torch.zeros(positions.shape[:2] + (rot // 2,),
@@ -177,9 +189,9 @@ def forward(cfg: ModelConfig, params: LM, batch, rules: Rules,
             sort_impl: str = "xla", return_cache: bool = False,
             remat: Optional[str] = None):
     """Full-sequence forward. ``batch``: ``tokens`` ``(B, S)`` or
-    ``frames`` ``(B, S, d)``, optional ``positions``. Returns ``(logits,
-    aux_loss, cache | None)``."""
-    check_family(cfg)
+    ``frames`` ``(B, S, d)``, optional ``positions`` and ``seq_mask`` (the
+    valid positions of a right-padded prefill, read by Mamba2 layers).
+    Returns ``(logits, aux_loss, cache | None)``."""
     _check_remat(cfg.remat if remat is None else remat)
     x = _embed(cfg, params, batch, rules)
     bsz, seq = x.shape[:2]
@@ -187,24 +199,60 @@ def forward(cfg: ModelConfig, params: LM, batch, rules: Rules,
     positions = (default_positions(cfg, bsz, seq, device=x.device)
                  if positions is None else _as(positions, x.device))
     cos, sin = _rope(cfg, positions)
+    seq_mask = batch.get("seq_mask")
+    if seq_mask is not None:
+        seq_mask = _as(seq_mask, x.device)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: Dict[str, Any] = {}
-    for name, _, _ in _plan(cfg):
-        ks, vs = [], []
-        for block in getattr(params, name):
-            x, c, aux = transformer_block(
-                cfg, block, x, cos, sin, rules, return_cache=return_cache,
-                sort_impl=sort_impl)
-            aux_total = aux_total + aux
+    if cfg.family == "hybrid":
+        x, caches = _hybrid_forward(cfg, params, x, cos, sin, rules,
+                                    return_cache, seq_mask)
+    else:
+        for name, _, kind in _plan(cfg):
+            layer_caches = []
+            for block in getattr(params, name):
+                if kind == "mamba":
+                    x, c = mamba_block(cfg, block, x, rules,
+                                       return_cache=return_cache,
+                                       seq_mask=seq_mask)
+                else:
+                    x, c, aux = transformer_block(
+                        cfg, block, x, cos, sin, rules,
+                        return_cache=return_cache, sort_impl=sort_impl)
+                    aux_total = aux_total + aux
+                layer_caches.append(c)
             if return_cache:
-                ks.append(c["k"])
-                vs.append(c["v"])
-        if return_cache:
-            caches[name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+                caches[name] = _stack(layer_caches)
 
     logits = _head(cfg, params, x, rules)
     return logits, aux_total, (caches if return_cache else None)
+
+
+def _stack(layer_caches):
+    """Per-layer cache dicts as one dict of leaves with a leading layer
+    axis."""
+    return {k: torch.stack([c[k] for c in layer_caches])
+            for k in layer_caches[0]}
+
+
+def _hybrid_forward(cfg, params, x, cos, sin, rules, return_cache,
+                    seq_mask):
+    """Zamba2: groups of [the shared block; ``hybrid_period`` Mamba2
+    layers], the shared block's weights the same in every group."""
+    shared_caches, mamba_caches = [], []
+    for start, end in hybrid_groups(cfg):
+        x, sc, _ = transformer_block(cfg, params.shared, x, cos, sin, rules,
+                                     return_cache=return_cache)
+        shared_caches.append(sc)
+        for block in params.blocks[start:end]:
+            x, c = mamba_block(cfg, block, x, rules,
+                               return_cache=return_cache, seq_mask=seq_mask)
+            mamba_caches.append(c)
+    if not return_cache:
+        return x, {}
+    return x, {"shared": _stack(shared_caches),
+               "blocks": _stack(mamba_caches)}
 
 
 # ---------------- loss ----------------
@@ -231,7 +279,6 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens_or_frames,
     """One-token decode against ``cache`` (written in place). ``cur_index``:
     the position of the new token, a scalar or ``(B,)``. Returns ``(logits
     (B, 1, V), cache)``."""
-    check_family(cfg)
     key = "tokens" if cfg.input_kind == "tokens" else "frames"
     x = _embed(cfg, params, {key: tokens_or_frames}, rules)
     bsz = x.shape[0]
@@ -239,34 +286,72 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens_or_frames,
     positions = default_positions(cfg, bsz, 1, offset=cur, device=x.device)
     cos, sin = _rope(cfg, positions)
 
-    for name, _, _ in _plan(cfg):
-        stack = cache[name]
-        for i, block in enumerate(getattr(params, name)):
-            layer = {"k": stack["k"][i], "v": stack["v"][i]}
-            x, _, _ = transformer_block(cfg, block, x, cos, sin, rules,
-                                        cache=layer, cur_index=cur,
-                                        sort_impl=sort_impl)
+    def layer(stack, i):
+        return {k: leaf[i] for k, leaf in stack.items()}
+
+    if cfg.family == "hybrid":
+        for gi, (start, end) in enumerate(hybrid_groups(cfg)):
+            x, _, _ = transformer_block(cfg, params.shared, x, cos, sin,
+                                        rules, cache=layer(cache["shared"],
+                                                           gi),
+                                        cur_index=cur)
+            for i in range(start, end):
+                x, _ = mamba_block(cfg, params.blocks[i], x, rules,
+                                   cache=layer(cache["blocks"], i))
+    else:
+        for name, _, kind in _plan(cfg):
+            for i, block in enumerate(getattr(params, name)):
+                if kind == "mamba":
+                    x, _ = mamba_block(cfg, block, x, rules,
+                                       cache=layer(cache[name], i))
+                else:
+                    x, _, _ = transformer_block(
+                        cfg, block, x, cos, sin, rules,
+                        cache=layer(cache[name], i), cur_index=cur,
+                        sort_impl=sort_impl)
 
     return _head(cfg, params, x, rules), cache
 
 
 # ---------------- cache construction ----------------
 
-_CACHE_AXES = ("layers", "cache_batch", "cache_seq", "cache_kv_heads", None)
+_ATTN_AXES = {
+    "k": ("layers", "cache_batch", "cache_seq", "cache_kv_heads", None),
+    "v": ("layers", "cache_batch", "cache_seq", "cache_kv_heads", None),
+    "ckv": ("layers", "cache_batch", "cache_seq", None),
+    "kr": ("layers", "cache_batch", "cache_seq", None),
+}
+_SSM_AXES = {
+    "conv": ("layers", "cache_batch", None, "act_mlp"),
+    "ssm": ("layers", "cache_batch", "act_heads", None, None),
+}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                abstract: bool = False, device="cuda"):
     """The zeroed decode cache of ``seq`` positions and its logical axes:
-    ``(cache, axes)``. ``abstract=True`` builds it on the ``meta`` device,
-    allocating nothing."""
-    check_family(cfg)
+    ``(cache, axes)``. Mamba2 leaves are constant in ``seq``.
+    ``abstract=True`` builds it on the ``meta`` device, allocating
+    nothing."""
     dev = torch.device("meta") if abstract else resolve_device(device)
     dtype = _dtype(cfg.compute_dtype)
+
+    def build(spec, n, axes):
+        return ({k: torch.zeros((n,) + shape, dtype=dt, device=dev)
+                 for k, (shape, dt) in spec.items()},
+                {k: axes[k] for k in spec})
+
+    def attn(n):
+        return build(init_attn_cache(cfg, batch, seq, dtype), n, _ATTN_AXES)
+
+    def ssm(n):
+        return build(init_ssm_cache(cfg, batch, dtype), n, _SSM_AXES)
+
     cache, axes = {}, {}
-    for name, n, _ in _plan(cfg):
-        spec = init_attn_cache(cfg, batch, seq, dtype)
-        cache[name] = {k: torch.zeros((n,) + shape, dtype=dt, device=dev)
-                       for k, (shape, dt) in spec.items()}
-        axes[name] = {k: _CACHE_AXES for k in spec}
+    if cfg.family == "hybrid":
+        cache["shared"], axes["shared"] = attn(len(hybrid_groups(cfg)))
+        cache["blocks"], axes["blocks"] = ssm(cfg.n_layers)
+    else:
+        for name, n, kind in _plan(cfg):
+            cache[name], axes[name] = ssm(n) if kind == "mamba" else attn(n)
     return cache, axes

@@ -5,7 +5,8 @@ tracks its own ``cur`` position, so a batch decodes together with
 heterogeneous prompt lengths (per-row cache writes and per-row attention
 masks: ``models/attention.py`` ``_cache_write``/``_decode_mask``). The
 padding positions run through the model like real ones — in an MoE layer
-they route and use expert capacity, as in the reference.
+they route and use expert capacity, as in the reference. Mamba2 layers
+read the prefill's ``seq_mask``, so each state stops at its prompt's end.
 
 Eager PyTorch under ``torch.inference_mode``: prefill, the cache grown to
 ``max_seq``, then one decode step a token. Greedy decoding takes the
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-from ..models.model import LM, decode_step, forward
+from ..models.model import LM, decode_step, forward, init_cache
 from ..parallel.sharding import Rules
 
 __all__ = ["Engine", "GenerationResult"]
@@ -36,17 +37,24 @@ class GenerationResult:
     tokens: List[int]
 
 
-def _pad_cache_to(cache, target_seq: int):
-    """Grow the sequence axis (axis 2 of every ``(layers, B, S, ...)``
-    leaf) of a prefill cache to the decode capacity with zeros."""
+def _pad_cache_to(cache, axes, target_seq: int):
+    """Grow every 'cache_seq' axis of a prefill cache (the attention
+    leaves' positions) to the decode capacity with zeros; leaves without
+    one (the Mamba2 conv window and state) stay as they are. ``axes``:
+    ``init_cache``'s logical axes, the layer axis included."""
     out = {}
     for name, leaves in cache.items():
         out[name] = {}
         for k, leaf in leaves.items():
-            grown = leaf.new_zeros(leaf.shape[:2] + (target_seq,)
-                                   + leaf.shape[3:])
-            grown[:, :, :leaf.shape[2]] = leaf
-            out[name][k] = grown
+            ax = axes[name][k]
+            if "cache_seq" in ax:
+                dim = ax.index("cache_seq")
+                shape = list(leaf.shape)
+                shape[dim] = target_seq
+                grown = leaf.new_zeros(shape)
+                grown.narrow(dim, 0, leaf.shape[dim]).copy_(leaf)
+                leaf = grown
+            out[name][k] = leaf
     return out
 
 
@@ -98,7 +106,8 @@ class Engine:
 
         logits, cache = self._prefill(torch.from_numpy(toks).to(dev),
                                       torch.from_numpy(mask).to(dev))
-        cache = _pad_cache_to(cache, self.max_seq)
+        axes = init_cache(self.cfg, bsz, bound, abstract=True)[1]
+        cache = _pad_cache_to(cache, axes, self.max_seq)
 
         # the next token comes from each prompt's *last real* logits row
         last = torch.from_numpy(lens - 1).to(dev)

@@ -780,18 +780,24 @@ def test_moe_pallas_dispatch_permutation_on_the_card(cuda, n_tokens):
     assert torch.equal(ke, xe) and torch.equal(kp.long(), xp.long())
 
 
-@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
-def test_engine_greedy_on_the_card_matches_the_cpu(cuda, sort_impl):
+@pytest.mark.parametrize("arch,sort_impl", [
+    ("granite-moe-1b-a400m", "xla"), ("granite-moe-1b-a400m", "pallas"),
+    ("deepseek-v2-236b", "pallas"), ("minicpm3-4b", "xla"),
+    ("mamba2-370m", "xla"), ("zamba2-1.2b", "xla")])
+def test_engine_greedy_on_the_card_matches_the_cpu(cuda, arch, sort_impl):
     """Smoke config in float32, TF32 off: the same engine's greedy tokens
-    on the card and on the CPU."""
+    on the card and on the CPU; the MLA, Mamba2 and hybrid archs' batch
+    also holds a 2-token prompt, whose conv window is the batch's
+    padding."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_lm
     from repro_torch.serve import Engine
-    cfg = get_smoke_config("granite-moe-1b-a400m")
+    cfg = get_smoke_config(arch)
     lm = init_lm(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(0)
-    prompts = [list(rng.integers(1, cfg.vocab_size, n))
-               for n in (3, 17, 9, 30)]
+    lengths = (3, 17, 9, 30) if arch == "granite-moe-1b-a400m" \
+        else (3, 17, 9, 30, 2)
+    prompts = [list(rng.integers(1, cfg.vocab_size, n)) for n in lengths]
     allow = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -802,3 +808,43 @@ def test_engine_greedy_on_the_card_matches_the_cpu(cuda, sort_impl):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
     assert got == want
+
+
+@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
+def test_moe_forward_is_bit_identical_run_to_run(cuda, sort_impl,
+                                                 monkeypatch):
+    """C4: one MoE forward twice on the card — Granite's smoke config in
+    bfloat16, 8 x 64 tokens over 4 experts top-2, so every expert takes
+    many rows and every token sums two — gives the same bits and the same
+    routing (expert ids and weights): the combine has no atomics."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.param import Builder
+    from repro_torch.parallel.sharding import Rules
+    cfg = get_smoke_config("granite-moe-1b-a400m").replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    assert (cfg.moe.n_experts, cfg.moe.top_k) == (4, 2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    layer = moe.MoE(Builder(gen, dtype=torch.bfloat16, device=cuda), cfg)
+    x = torch.randn((8, 64, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    routes, real = [], moe._route
+
+    def rec(cfg_, p, xf):
+        out = real(cfg_, p, xf)
+        routes.append(out)
+        return out
+
+    monkeypatch.setattr(moe, "_route", rec)
+    with torch.inference_mode():
+        runs = [moe.moe(cfg, layer, x, Rules(), sort_impl=sort_impl)
+                for _ in range(2)]
+    (y0, aux0), (y1, aux1) = runs
+    assert y0.dtype == torch.bfloat16
+    assert torch.equal(y0.view(torch.int16), y1.view(torch.int16))
+    assert torch.equal(aux0, aux1)
+    assert len(routes) == 2
+    (p0, e0, _), (p1, e1, _) = routes
+    assert torch.equal(e0, e1) and torch.equal(p0, p1)
+    per_expert = torch.bincount(e0.reshape(-1), minlength=4)
+    assert int(per_expert.min()) > 1

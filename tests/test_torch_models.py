@@ -1,9 +1,10 @@
 """The port's model stack (``repro_torch.models``) against the reference's
 on the CPU, at the smoke configs, from the same weights
 (``interop.lm_from_reference``): forward logits and aux, ``lm_loss``,
-decode step by step, the MoE layer with every dispatch sort at the default
-capacity (with drops, permutations exactly equal), chunked attention, and
-the families that are not ported yet raising."""
+decode step by step, a prefill's cache then per-row decode — for all ten
+archs (GQA, MLA, MoE, the Mamba2 SSM, the Zamba2 hybrid) — the MoE layer
+with every dispatch sort at the default capacity (with drops, permutations
+exactly equal) and chunked attention."""
 
 import dataclasses
 
@@ -15,6 +16,7 @@ import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.models import forward as ref_forward
+from repro.models import init_cache as ref_init_cache
 from repro.models import init_lm as ref_init_lm
 from repro.models import lm_loss as ref_lm_loss
 from repro.models import moe as ref_moe_mod
@@ -30,8 +32,8 @@ from repro_torch.models.param import Builder
 from repro_torch.parallel.sharding import Rules
 
 PORTED = ["granite-moe-1b-a400m", "glm4-9b", "llama3-405b",
-          "nemotron-4-340b", "qwen2-vl-2b", "musicgen-large"]
-UNPORTED = ["deepseek-v2-236b", "minicpm3-4b", "mamba2-370m", "zamba2-1.2b"]
+          "nemotron-4-340b", "qwen2-vl-2b", "musicgen-large",
+          "deepseek-v2-236b", "minicpm3-4b", "mamba2-370m", "zamba2-1.2b"]
 RULES, REF_RULES = Rules(), RefRules()
 B, S = 2, 16
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -111,7 +113,7 @@ def test_decode_matches_forward(arch):
     with torch.no_grad():
         want, _, _ = forward(cfg, lm, batch, RULES)
         cache, axes = init_cache(cfg, B, S, device="cpu")
-        assert axes["blocks"]["k"][2] == "cache_seq"
+        assert axes == ref_init_cache(cfg, B, S, abstract=True)[1]
         outs = []
         for t in range(S):
             lg, cache = decode_step(cfg, lm, cache, inp[:, t:t + 1],
@@ -135,10 +137,13 @@ def test_prefill_cache_then_per_row_decode(arch):
         full, _, _ = forward(cfg, lm, batch, RULES)
         head = {key: batch[key][:, :8]}
         _, _, cache = forward(cfg, lm, head, RULES, return_cache=True)
-        grown, _ = init_cache(cfg, B, 12, device="cpu")
+        grown, axes = init_cache(cfg, B, 12, device="cpu")
         for name_, leaves in cache.items():
             for k, leaf in leaves.items():
-                grown[name_][k][:, :, :8] = leaf
+                if "cache_seq" in axes[name_][k]:
+                    grown[name_][k][:, :, :8] = leaf
+                else:                  # Mamba2's window and state
+                    grown[name_][k].copy_(leaf)
         lg, _ = decode_step(cfg, lm, grown, batch[key][:, 8:9],
                             torch.tensor([8, 8]), RULES)
     assert float((lg[:, 0] - full[:, 8]).abs().max()) < 2e-3
@@ -243,7 +248,7 @@ def test_chunked_attention_matches_full(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-# ---------------- init, and what is not ported ----------------
+# ---------------- init ----------------
 
 def test_init_lm_draws_from_its_generator():
     cfg = get_smoke_config("granite-moe-1b-a400m")
@@ -294,18 +299,3 @@ def test_bfloat16_leaves_carry_across():
     assert w.dtype == torch.bfloat16
     want = np.asarray(params["blocks"]["moe"]["w_in"][1]).astype(np.float32)
     np.testing.assert_array_equal(w.float().numpy(), want)
-
-
-_ENTRY_POINTS = {
-    "init_lm": lambda cfg: init_lm(cfg, device="cpu"),
-    "forward": lambda cfg: forward(cfg, None, {}, RULES),
-    "decode_step": lambda cfg: decode_step(cfg, None, {}, None, 0, RULES),
-    "init_cache": lambda cfg: init_cache(cfg, 1, 8, device="cpu"),
-}
-
-
-@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_raise(name, entry):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        _ENTRY_POINTS[entry](get_smoke_config(name))

@@ -1,9 +1,9 @@
 """The port's serving path (``repro_torch.serve``, ``launch.serve``)
 against the reference's on the CPU, from the same weights: greedy
-``Engine.generate`` tokens on mixed-length batches and with an eos,
-``BucketedScheduler`` admission permutations at queue sizes on every
-kernel tier, ``run`` results and ``padding_stats``, admission over a
-one-rank mesh, and the serving CLI."""
+``Engine.generate`` tokens (GQA, MoE, MLA and the Zamba2 hybrid) on
+mixed-length batches and with an eos, ``BucketedScheduler`` admission
+permutations at queue sizes on every kernel tier, ``run`` results and
+``padding_stats``, admission over a one-rank mesh, and the serving CLI."""
 
 import os
 import subprocess
@@ -28,7 +28,8 @@ from repro_torch.serve import BucketedScheduler, Engine, Request
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(scope="module", params=["glm4-9b", "granite-moe-1b-a400m"])
+@pytest.fixture(scope="module", params=["glm4-9b", "granite-moe-1b-a400m",
+                                        "minicpm3-4b", "zamba2-1.2b"])
 def engines(request):
     """(cfg, the reference's engine, the port's) from the same weights."""
     cfg = get_smoke_config(request.param)
@@ -151,11 +152,13 @@ def test_mesh_admission_at_world_size_one_equals_single_device(tmp_path):
         assert on_mesh == alone
 
 
-def test_serve_cli_runs_on_the_cpu():
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
+                                  "zamba2-1.2b"])
+def test_serve_cli_runs_on_the_cpu(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "granite-moe-1b-a400m", "--smoke", "--device", "cpu", "--requests",
+         arch, "--smoke", "--device", "cpu", "--requests",
          "10", "--max-new", "3", "--sort-impl", "pallas"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
