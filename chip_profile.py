@@ -87,6 +87,28 @@ decode step, and the host microseconds a decode step takes to return
     python3 chip_profile.py serve
     python3 chip_profile.py serve --arch minicpm3-4b
 
+With the argument ``train`` it builds Granite-MoE 1B — or, with
+``--arch``, another arch — at its published width and traces one train
+step of ``chip_smoke.py``'s phase 8 (8 x 512 tokens, remat from the
+config, the dispatch on the kernels) after two untraced ones: the host
+milliseconds a step takes to return beside its whole time, the port's
+kernel launches a step, and the trace's busy time, idle share, device
+events and top device ops; then the same step untraced with each remat
+mode ('dots', 'full', 'none'), its host and whole time and peak memory
+(``train_cost``):
+
+    python3 chip_profile.py train
+
+With the argument ``wave`` it runs only the serving phases of
+``chip_smoke.py`` (phase 6: Granite-MoE 1B at its published width serving
+a wave of requests and prefilling with each dispatch; phase 7: MiniCPM3-4B
+and Zamba2-1.2B serving the wave, deepseek-v2 cut to 3 layers, the smoke
+archs card against CPU), whose lines give the prefill and decode medians
+and tokens/s; the script, copied into an older checkout, runs that
+checkout's phases the same way:
+
+    python3 chip_profile.py wave
+
 It exits non-zero without a card. Nothing of ``jax`` or ``repro`` is
 imported.
 """
@@ -603,6 +625,54 @@ def serve_cost(device, arch: str, steps: int = 16):
               steps)
 
 
+def train_cost(device, arch: str):
+    """One traced train step of ``arch`` at full width (``chip_smoke``'s
+    phase-8 batch of 8 x 512 and hyperparameters, the dispatch on the
+    kernels), after two untraced steps: the host's time to return a step,
+    its kernel launches, and the trace."""
+    import torch
+    from chip_smoke import (TRAIN_BATCH, TRAIN_HYPER, TRAIN_SEQ, full_width,
+                            launch_counts, train_batch, used)
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.training import Hyper, make_train_step
+    cfg, lm, _ = full_width(device, arch)
+    opt = init_opt_state(lm)
+    step_fn = make_train_step(cfg, Rules(), Hyper(**TRAIN_HYPER))
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
+    state = {"lm": lm, "opt": opt, "step": 0, "host": [], "whole": []}
+
+    def step():
+        t0 = time.perf_counter()
+        state["lm"], state["opt"], _ = step_fn(state["lm"], state["opt"],
+                                               batch, state["step"])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        state["step"] += 1
+        state["host"].append((t1 - t0) * 1e3)
+        state["whole"].append((time.perf_counter() - t0) * 1e3)
+
+    step()                                               # warm
+    _, runs = launch_counts(step)
+    print(f"[train] {cfg.name} step of {TRAIN_BATCH} x {TRAIN_SEQ}, not "
+          f"traced: host {state['host'][-1]:.2f} ms to return, "
+          f"{state['whole'][-1]:.2f} ms with its synchronize; the port's "
+          f"kernel launches a step {used(runs)}")
+    trace(f"train {cfg.name} step ({TRAIN_BATCH} x {TRAIN_SEQ})", step, 1)
+    # the same step with each remat mode, untraced: what the recompute and
+    # the selective policy's per-op dispatch cost the host and the device
+    for remat in ("dots", "full", "none"):
+        step_fn = make_train_step(cfg.replace(remat=remat), Rules(),
+                                  Hyper(**TRAIN_HYPER))
+        step()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step()
+        print(f"[train] remat={remat!r}: host {state['host'][-1]:.2f} ms to "
+              f"return, {state['whole'][-1]:.2f} ms with its synchronize; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -641,6 +711,18 @@ def main() -> int:
         from chip_smoke import SERVE_ARCH
         args = sys.argv[2:]
         serve_cost(device, args[1] if args[:1] == ["--arch"] else SERVE_ARCH)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:2] == ["train"]:
+        from chip_smoke import TRAIN_ARCH
+        args = sys.argv[2:]
+        train_cost(device, args[1] if args[:1] == ["--arch"] else TRAIN_ARCH)
+        print(nvidia_smi())
+        return 0
+    if sys.argv[1:] == ["wave"]:
+        from chip_smoke import Report, phase_families, phase_serve
+        phase_serve(Report(), device)
+        phase_families(Report(), device)
         print(nvidia_smi())
         return 0
     if sys.argv[1:] == ["e2e"]:

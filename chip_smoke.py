@@ -101,7 +101,21 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      within the phase-6 tolerance) and 4 decode steps (B1 dispatches of 48
      assignments); and the engine's greedy tokens at the smoke configs of
      minicpm3-4b, deepseek-v2-236b, mamba2-370m and zamba2-1.2b on the card
-     against the CPU's, the batch holding a 2-token prompt.
+     against the CPU's, the batch holding a 2-token prompt;
+  8. train — Granite-MoE 1B at its published width and depth (bf16,
+     weights drawn on the card from seed 0, remat 'dots') through
+     ``launch.train.train_loop``: 8 steps of 8 x 512 tokens with the
+     kernels' dispatch, a snapshot of ~13.9 GB every 4 steps, a failure at
+     step 6 and the resume from step 4 (one recovery, 10 finite losses, the
+     last snapshot read back bit-equal), each step's B2 and B4 launches
+     held to 48 dispatches' worth (24 forward, 24 recomputed), with the
+     median step, tokens/s, peak memory and the snapshots' save, write and
+     restore times; one step's loss and gradients with 'pallas' twice and
+     'xla' twice, bit-identical, every dispatch's permutation the stable
+     argsort's; Zamba2-1.2B at its published width and depth, 4 steps on
+     one repeated batch, losses finite and falling; and three float32
+     train steps of six smoke configs on the card against the CPU
+     (``phase_train``).
 
 Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
 so the host's time per call counts where it is longer) and ``device_ms``
@@ -205,6 +219,33 @@ DEEPSEEK_LAYERS = 3
 DEEPSEEK_DECODE_STEPS = 4
 SMOKE_ARCHS = ("minicpm3-4b", "deepseek-v2-236b", "mamba2-370m",
                "zamba2-1.2b")
+
+# phase 8: training — Granite-MoE 1B at full width through train_loop with
+# a failure and a resume, one step with each dispatch, Zamba2-1.2B at full
+# width, and the smoke configs on the card against the CPU
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_STEPS = 8
+TRAIN_BATCH = 8
+TRAIN_SEQ = 512
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = (6,)
+TRAIN_HYPER = dict(lr=1e-4, warmup=2, total_steps=TRAIN_STEPS,
+                   sort_impl="pallas")
+TRAIN_PATH = ("bitonic_rows_lex", "merge_adjacent_lex")
+ZAMBA_ARCH = "zamba2-1.2b"
+ZAMBA_STEPS = 4
+ZAMBA_HYPER = dict(lr=1e-3, warmup=1, total_steps=ZAMBA_STEPS)
+TRAIN_SMOKE_ARCHS = ("glm4-9b", "granite-moe-1b-a400m", "minicpm3-4b",
+                     "mamba2-370m", "zamba2-1.2b", "musicgen-large")
+TRAIN_SMOKE_STEPS = 3
+TRAIN_SMOKE_SHAPE = (2, 32)           # 128 assignments: the B1 tier
+# card against CPU in float32 with TF32 off (the port makes no cuDNN
+# call): cuBLAS and the CPU sum in other orders, ~1e-6 relative a product,
+# and AdamW's first update is sign(g) * lr, so an element whose gradient is
+# near 0 may move by 2 * lr on one side only; three steps keep the losses
+# within 1e-4 and the gradient norms within 5e-4 (both under 1e-3)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GNORM_RTOL = 5e-4
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -2531,6 +2572,346 @@ def phase_families(report, device):
     print(f"[families] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 8 ----------------------------------------------------------------
+
+def train_batch(cfg, batch: int, seq: int, device, index: int = 0):
+    """Batch ``index`` of the training loop's stream (``TokenStream``, or
+    seeded frames for the frames archs) on ``device``."""
+    from repro_torch.interop import to_device
+    from repro_torch.launch.train import _make_batch_iter
+    it = _make_batch_iter(cfg, batch, seq)
+    for _ in range(index):
+        next(it)
+    return {k: to_device(v, device) for k, v in next(it).items()}
+
+
+def dispatch_launches(device, n: int, n_experts: int) -> dict:
+    """The kernel launches of one 'pallas' dispatch sort of ``n`` seeded
+    expert ids — what the code's tier plan gives at ``n``."""
+    import torch
+    from repro_torch.models import moe
+    gen = torch.Generator(device=device).manual_seed(2)
+    e = torch.randint(0, n_experts, (n,), generator=gen, device=device,
+                      dtype=torch.int32)
+    iota = torch.arange(n, dtype=torch.int32, device=device)
+    return used(launch_counts(
+        lambda: moe._sort_assignments(e, iota, "pallas"))[1])
+
+
+def timed_steps(train_mod, times: list, per_step: list):
+    """Replace ``train_mod.make_train_step`` so each step it builds is timed
+    (host clock between two synchronizations) and its kernel launches
+    read (the counters are not reset); returns the undo."""
+    from repro_torch.kernels import KERNELS
+    real = train_mod.make_train_step
+
+    def make(*args, **kw):
+        step_fn = timed(real(*args, **kw), times)
+
+        def counted(*a, **kw_):
+            before = {n: k.launches for n, k in KERNELS.items()}
+            out = step_fn(*a, **kw_)
+            per_step.append({n: k.launches - before[n]
+                             for n, k in KERNELS.items()
+                             if k.launches != before[n]})
+            return out
+        return counted
+    train_mod.make_train_step = make
+
+    def undo():
+        train_mod.make_train_step = real
+    return undo
+
+
+def timed_checkpoints(train_mod, times: dict):
+    """Replace ``train_mod.CheckpointManager`` with one whose ``save``
+    (the copy to the host), its writes (on the writer thread), its wait
+    for a write in flight and its restore are timed; returns the undo."""
+    from repro_torch.checkpoint import manager
+    real_cls, real_save = train_mod.CheckpointManager, manager.save
+
+    def write(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*args, **kw)
+        times["write"].append(time.perf_counter() - t0)
+        return out
+
+    class Timed(real_cls):
+        def save(self, step, tree, extra=None):
+            t0 = time.perf_counter()
+            super().save(step, tree, extra)
+            times["save"].append(time.perf_counter() - t0)
+
+        def restore_latest(self, target, device="cuda"):
+            t0 = time.perf_counter()
+            self.wait()
+            t1 = time.perf_counter()
+            out = super().restore_latest(target, device)
+            times["wait"].append(t1 - t0)
+            times["restore"].append(time.perf_counter() - t1)
+            return out
+
+    train_mod.CheckpointManager, manager.save = Timed, write
+
+    def undo():
+        train_mod.CheckpointManager, manager.save = real_cls, real_save
+    return undo
+
+
+def train_full_width(report, device, workdir):
+    """Granite-MoE 1B at its published width and depth through
+    ``train_loop``: 8 steps of 8 x 512 tokens, snapshots every 4 steps, a
+    failure at step 6 and the resume from step 4; the kernels' launches a
+    step held to the code's count; the last snapshot read back."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_to_reference, named_from_reference
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import init_lm
+    from repro_torch.training import Hyper
+    cfg = get_config(TRAIN_ARCH)
+    n_params = sum(p.numel() for p in init_lm(cfg, device="meta")
+                   .parameters())
+    snap_bytes = n_params * (2 + 4 + 4)     # bf16 weights, float32 m and v
+    free = shutil.disk_usage(workdir).free
+    print(f"[train] {cfg.name}: {n_params} parameters counted on meta; a "
+          f"snapshot {snap_bytes} B ({n_params * 2} B of bf16 weights, "
+          f"{n_params * 8} B of float32 moments); {free} B free in the "
+          f"temporary directory")
+    if free < 2.2 * snap_bytes:
+        raise AssertionError("train: too little disk for two snapshots")
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    n_assign = TRAIN_BATCH * TRAIN_SEQ * cfg.moe.top_k
+    per_dispatch = dispatch_launches(device, n_assign, cfg.moe.n_experts)
+    want_step = {k: 2 * n_moe * c for k, c in per_dispatch.items()}
+    print(f"[train] one 'pallas' dispatch of {n_assign} assignments: "
+          f"launches {per_dispatch}; a step's forward and recompute "
+          f"({2 * n_moe} dispatches) should launch {want_step}")
+
+    times, per_step = [], []
+    ck = {"save": [], "write": [], "wait": [], "restore": []}
+    undo_steps = timed_steps(train_mod, times, per_step)
+    undo_ckpt = timed_checkpoints(train_mod, ck)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        (lm, losses, events), runs = launch_counts(
+            lambda: train_mod.train_loop(
+                cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                ckpt_dir=workdir, ckpt_every=TRAIN_CKPT_EVERY,
+                fail_at=TRAIN_FAIL_AT, hyper=Hyper(**TRAIN_HYPER),
+                verbose=False, device=device))
+    finally:
+        undo_steps()
+        undo_ckpt()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for kname, c in runs.items():
+        report.rows[kname]["launches"] += c
+    n_first = TRAIN_FAIL_AT[0]
+    resumed = TRAIN_STEPS - TRAIN_CKPT_EVERY
+    if len(events) != 1 or events[0].step != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"train: recovery events {events}, expected "
+                             f"one restore of step {TRAIN_CKPT_EVERY}")
+    if len(losses) != n_first + resumed or not np.isfinite(losses).all():
+        raise AssertionError(f"train: losses {losses}")
+    for kname in TRAIN_PATH:
+        if runs[kname] == 0:
+            raise AssertionError(f"train: {kname} was never launched")
+    if any(s != want_step for s in per_step):
+        raise AssertionError(f"train: launches a step {per_step}, expected "
+                             f"{want_step}")
+    steps_on_disk = sorted(os.listdir(workdir))
+    on_disk = {d: dir_bytes(os.path.join(workdir, d)) for d in steps_on_disk}
+    target = {"params": lm_to_reference(lm)}      # the leaves' shapes
+    t1 = time.perf_counter()
+    back = named_from_reference(restore(workdir, TRAIN_STEPS, target,
+                                        device=device)["params"])
+    read_back = time.perf_counter() - t1
+    mismatched = [k for k, p in lm.state_dict().items()
+                  if not torch.equal(back[k].view(torch.int16),
+                                     p.view(torch.int16))]
+    if mismatched or steps_on_disk != [f"step_{TRAIN_CKPT_EVERY}",
+                                       f"step_{TRAIN_STEPS}"]:
+        raise AssertionError(f"train: snapshots {steps_on_disk}; leaves "
+                             f"read back unequal: {mismatched[:5]}")
+    med = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {cfg.name} train_loop: {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, failure at {TRAIN_FAIL_AT}, "
+          f"{len(events)} recovery (restored step {events[0].step}); "
+          f"{len(losses)} finite losses {[round(l, 5) for l in losses]}; "
+          f"{wall:.2f} s in all")
+    print(f"[train] steps: {len(times)} timed, median {med:.2f} ms a step "
+          f"(first {times[0]:.2f} ms, all {[round(t, 2) for t in times]}), "
+          f"{tokens / (med / 1e3):.1f} tokens/s at {tokens} tokens a step; "
+          f"max_memory_allocated {peak} B")
+    print(f"[train] launches a step {per_step[0]} in every step (expected "
+          f"{want_step}); the loop's launches {used(runs)}")
+    print(f"[train] snapshots: save (the copy to the host) "
+          f"{[round(t, 3) for t in ck['save']]} s, writes "
+          f"{[round(t, 3) for t in ck['write']]} s, the restore's wait for "
+          f"a write in flight {[round(t, 3) for t in ck['wait']]} s, restore "
+          f"{[round(t, 3) for t in ck['restore']]} s; on disk {on_disk} B; "
+          f"step {TRAIN_STEPS}'s weights read back onto the card in "
+          f"{read_back:.3f} s, bit-equal to the trained ones")
+    del lm, back
+    return cfg
+
+
+def train_dispatch(report, cfg, device):
+    """One full-width step's loss and gradients (``lm_loss`` and its
+    backward, remat 'dots') from the weights of seed 0 and the loop's first
+    batch: 'pallas' twice and 'xla' twice, all bit-identical; the kernels'
+    permutation at every dispatch of the forward and the recompute equal
+    to the stable argsort's."""
+    import torch
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.parallel.sharding import Rules
+    lm = init_lm(cfg, seed=0, device=device)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
+    names, params = zip(*lm.named_parameters())
+
+    def grads(impl):
+        loss, _ = lm_loss(cfg, lm, batch, Rules(), sort_impl=impl)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    seen, undo = recorded_dispatches()
+    try:
+        want_loss, want = grads("pallas")
+    finally:
+        undo()
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    if len(seen) != 2 * n_moe:
+        raise AssertionError(f"train: {len(seen)} dispatch sorts in a step, "
+                             f"expected {2 * n_moe} (forward and recompute)")
+    for i, (got, ref) in enumerate(seen):
+        if not all(torch.equal(g.long(), r.long()) for g, r in zip(got, ref)):
+            raise AssertionError(f"train: dispatch {i}'s permutation differs "
+                                 "from the stable argsort's")
+    print(f"[train] one step, 'pallas': {len(seen)} dispatch sorts (forward "
+          f"and recompute of {n_moe} MoE layers), every permutation equal to "
+          "the stable argsort's")
+    for impl in ("pallas", "xla", "xla"):
+        ms = []
+        (loss, g), runs = launch_counts(lambda: timed(grads, ms)(impl))
+        diff = [n for n, a, b in zip(names, g, want)
+                if not torch.equal(a.view(torch.int16), b.view(torch.int16))]
+        if diff or not torch.equal(loss, want_loss):
+            raise AssertionError(f"train: sort_impl={impl!r} gives other "
+                                 f"bits: loss {float(loss)} against "
+                                 f"{float(want_loss)}; gradients {diff[:5]}")
+        print(f"[train] loss and {len(g)} gradients with "
+              f"sort_impl={impl!r}: bit-identical to the first 'pallas' "
+              f"run; {ms[0]:.2f} ms; launches {used(runs)}")
+        del g
+    del lm, want
+
+
+def train_zamba(device):
+    """Zamba2-1.2B at its published width and depth: ``ZAMBA_STEPS`` train
+    steps on one repeated 8 x 512 batch (the SSD's backward pass at full
+    width; no kernel runs); the losses finite and falling."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.training import Hyper, make_train_step
+    cfg = get_config(ZAMBA_ARCH)
+    lm = init_lm(cfg, seed=0, device=device)
+    opt = init_opt_state(lm)
+    step = timed(make_train_step(cfg, Rules(), Hyper(**ZAMBA_HYPER)), [])
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for s in range(ZAMBA_STEPS):
+        t0 = time.perf_counter()
+        lm, opt, m = step(lm, opt, batch, s)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(l) for l in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: {cfg.name}'s losses {losses} are not "
+                             "finite and falling")
+    print(f"[train] {cfg.name}: {ZAMBA_STEPS} steps on one repeated "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} batch, losses "
+          f"{[round(l, 5) for l in losses]}; median "
+          f"{statistics.median(times):.2f} ms a step (all "
+          f"{[round(t, 2) for t in times]}); max_memory_allocated {peak} B")
+    del lm, opt
+
+
+def train_smoke_card_against_cpu(device):
+    """Each of ``TRAIN_SMOKE_ARCHS`` at its smoke config in float32: three
+    train steps with the kernels' dispatch from the same weights on the
+    card and on the CPU; losses and gradient norms within the stated
+    tolerances."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.training import Hyper, make_train_step
+    for arch in TRAIN_SMOKE_ARCHS:
+        small = get_smoke_config(arch)
+        hyper = Hyper(lr=1e-3, warmup=1, total_steps=TRAIN_SMOKE_STEPS,
+                      sort_impl="pallas")
+        cpu_lm = init_lm(small, seed=0, device="cpu")
+        card_lm = copy.deepcopy(cpu_lm).to(device)
+        out = {}
+        for dev, lm in (("cpu", cpu_lm), ("card", card_lm)):
+            opt = init_opt_state(lm)
+            step = make_train_step(small, Rules(), hyper)
+            out[dev] = []
+            for s in range(TRAIN_SMOKE_STEPS):
+                batch = train_batch(small, *TRAIN_SMOKE_SHAPE,
+                                    lm.final_norm.w.device, index=s)
+                lm, opt, m = step(lm, opt, batch, s)
+                out[dev].append((float(m["loss"]), float(m["grad_norm"])))
+        rel = [(abs(c[0] - w[0]) / abs(w[0]), abs(c[1] - w[1]) / abs(w[1]))
+               for c, w in zip(out["card"], out["cpu"])]
+        loss_err = max(r[0] for r in rel)
+        gnorm_err = max(r[1] for r in rel)
+        print(f"[train] {arch} smoke, float32, {TRAIN_SMOKE_STEPS} steps of "
+              f"{TRAIN_SMOKE_SHAPE}: card (loss, grad_norm) {out['card']}, "
+              f"CPU {out['cpu']}; largest relative differences: loss "
+              f"{loss_err:.3g} (tolerance {TRAIN_LOSS_RTOL}), grad_norm "
+              f"{gnorm_err:.3g} ({TRAIN_GNORM_RTOL})")
+        if not (loss_err <= TRAIN_LOSS_RTOL and gnorm_err <= TRAIN_GNORM_RTOL):
+            raise AssertionError(f"train: {arch}'s steps on the card differ "
+                                 "from the CPU's past the tolerance")
+
+
+def phase_train(report, device):
+    """Training on the card (``phase_train``): Granite-MoE 1B at full width
+    trained, killed and resumed; one step with each dispatch bit for bit;
+    Zamba2-1.2B at full width; six smoke archs card against CPU."""
+    import gc
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = train_full_width(report, device, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_dispatch(report, cfg, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_zamba(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_smoke_card_against_cpu(device)
+    print(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def synthetic_soak_words():
     """The soak's 200 words: ``tests/test_chaos.py``'s generator."""
     import numpy as np
@@ -2571,6 +2952,7 @@ def main() -> int:
     phase_mesh(report, device, words["DS2"], big_words)
     phase_serve(report, device)
     phase_families(report, device)
+    phase_train(report, device)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

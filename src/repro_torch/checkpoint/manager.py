@@ -17,6 +17,12 @@ reference's key path (``['a']['b']`` is ``a.b``, ``[0]`` is ``0``) and
 written as ``<name>.npy`` with its numpy dtype string; torch tensors are
 written with their bits unchanged (``interop.to_numpy``). A snapshot either
 package writes restores in the other.
+
+bfloat16 is written as the reference writes it: the same ``.npy`` bytes
+(2-byte records, ``'<V2'`` in the header) and ``"bfloat16"`` in the
+manifest; it is restored by the manifest's dtype, bits unchanged. The
+reference itself cannot restore such a leaf (``np.load`` gives ``|V2``
+records that it hands to ``jnp.asarray``); the port can.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..interop import resolve_device, to_device, to_numpy
+from ..interop import BF16_RECORD, is_bf16, resolve_device, to_device, \
+    to_numpy
 
 __all__ = ["CheckpointManager", "CorruptSnapshotError", "save", "restore",
            "latest_step", "read_manifest", "list_steps", "sweep_tmp"]
@@ -129,6 +136,21 @@ def _host(leaf) -> np.ndarray:
         else np.asarray(leaf)
 
 
+def _save_npy(path: str, arr: np.ndarray) -> str:
+    """``arr`` written as ``np.save`` writes it; returns its manifest dtype.
+    A bfloat16 leaf gets the header the reference's ``ml_dtypes`` array
+    gets (``'<V2'``), so the file's bytes are the reference's."""
+    if not is_bf16(arr):
+        np.save(path, arr)
+        return str(arr.dtype)
+    arr = np.ascontiguousarray(arr)
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(arr.view(np.int16).data)
+    return "bfloat16"
+
+
 def save(directory: str, step: int, tree: Any, extra: Any = None) -> str:
     """Atomic synchronous snapshot. Returns the final path.
 
@@ -148,10 +170,10 @@ def save(directory: str, step: int, tree: Any, extra: Any = None) -> str:
     for name, leaf in zip(names, leaves):
         arr = _host(leaf)
         fname = f"{name}.npy"
-        np.save(os.path.join(tmp, fname), arr)
+        dtype = _save_npy(os.path.join(tmp, fname), arr)
         manifest["leaves"].append(
             {"name": name, "file": fname, "shape": list(arr.shape),
-             "dtype": str(arr.dtype)})
+             "dtype": dtype})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -189,7 +211,9 @@ def read_manifest(directory: str, step: int) -> dict:
 def restore(directory: str, step: int, target: Any, device="cuda") -> Any:
     """Load a snapshot into the structure of ``target`` (a tree of tensors,
     numpy arrays or numbers giving each leaf's shape), every leaf a tensor
-    on ``device`` with the dtype and bits it was saved with."""
+    on ``device`` with the dtype and bits it was saved with (the
+    manifest's: a ``"bfloat16"`` leaf's 2-byte records become a bf16
+    tensor)."""
     dev = resolve_device(device)
     path = os.path.join(directory, f"step_{step}")
     manifest = read_manifest(directory, step)
@@ -210,6 +234,11 @@ def restore(directory: str, step: int, target: Any, device="cuda") -> Any:
         if tuple(arr.shape) != tuple(np.shape(leaf)):
             raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
                              f"target {tuple(np.shape(leaf))}")
+        if by_name[name]["dtype"] == "bfloat16":
+            if arr.dtype.itemsize != 2:
+                raise CorruptSnapshotError(
+                    leaf_path, f"{arr.dtype} records for a bfloat16 leaf")
+            arr = arr.view(BF16_RECORD)
         out.append(to_device(arr, dev))
     return _unflatten(target, iter(out))
 

@@ -1,2 +1,3 @@
-"""Command-line entry points of the port (``python -m
-repro_torch.launch.serve``)."""
+"""Command-line entry points of the port: ``python -m
+repro_torch.launch.serve`` (a server behind the length-bucketed scheduler)
+and ``python -m repro_torch.launch.train`` (the fault-tolerant trainer)."""

@@ -12,9 +12,20 @@ applied before every group of ``hybrid_period`` Mamba2 layers
 reference's functions (``init_lm``, ``forward``, ``decode_step``,
 ``init_cache``, ``lm_loss``, ``default_positions``) stay as thin functions
 over it, where the reference's ``params`` argument is the ``LM``. Where
-the reference scans a stack, the port loops over its blocks. ``remat`` is
-accepted and has no effect (there is no backward pass without training,
-which comes later).
+the reference scans a stack, the port loops over its blocks.
+
+``remat`` (the config's, or the argument) is the reference's
+``_maybe_remat`` around each block of a stack (the hybrid's Mamba2 layers,
+not its shared block), where autograd records the forward: 'full' keeps
+only each block's input (``torch.utils.checkpoint``, non-reentrant) and
+runs the block again in the backward pass; 'dots' — the reference's
+``dots_with_no_batch_dims_saveable`` — keeps the products with no batch
+dimension (``aten.mm``, ``aten.addmm``) and recomputes everything else,
+the batched products (``bmm``: the attention einsums, the experts) among
+them (selective activation checkpointing). The recompute runs the MoE
+dispatch's sort again; the sort is deterministic, so it gives the first
+pass's permutation. Under ``no_grad`` or ``inference_mode`` (serving)
+``remat`` changes nothing.
 
 The decode cache is the reference's layout — ``{stack: {"k", "v"}}`` for
 GQA, ``{"ckv", "kr"}`` for MLA, ``{"conv", "ssm"}`` for Mamba2, each leaf
@@ -25,10 +36,14 @@ place.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..interop import resolve_device
 from ..parallel.sharding import Rules, constrain
@@ -164,7 +179,9 @@ def _as(x, device, dtype=None):
 def _embed(cfg, params, batch, rules: Rules):
     dev = params.device
     if cfg.input_kind == "tokens":
-        x = params.embed[_as(batch["tokens"], dev, torch.long)]
+        # F.embedding's backward sums each row's gradients in a fixed
+        # order; indexing's (an accumulating index_put) promises none
+        x = F.embedding(_as(batch["tokens"], dev, torch.long), params.embed)
     else:
         x = _as(batch["frames"], dev)
     x = x.to(_dtype(cfg.compute_dtype))
@@ -178,9 +195,27 @@ def _head(cfg, params, x, rules: Rules):
     return constrain(logits, rules, "batch", "seq", "act_vocab")
 
 
-def _check_remat(remat: str):
+# the products 'dots' keeps: those with no batch dimension
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` (a block's forward) checkpointed by ``remat``; as it is where
+    autograd records nothing."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {remat!r}")
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 # ---------------- forward (train / prefill) ----------------
@@ -192,7 +227,7 @@ def forward(cfg: ModelConfig, params: LM, batch, rules: Rules,
     ``frames`` ``(B, S, d)``, optional ``positions`` and ``seq_mask`` (the
     valid positions of a right-padded prefill, read by Mamba2 layers).
     Returns ``(logits, aux_loss, cache | None)``."""
-    _check_remat(cfg.remat if remat is None else remat)
+    remat = cfg.remat if remat is None else remat
     x = _embed(cfg, params, batch, rules)
     bsz, seq = x.shape[:2]
     positions = batch.get("positions")
@@ -207,19 +242,21 @@ def forward(cfg: ModelConfig, params: LM, batch, rules: Rules,
     caches: Dict[str, Any] = {}
     if cfg.family == "hybrid":
         x, caches = _hybrid_forward(cfg, params, x, cos, sin, rules,
-                                    return_cache, seq_mask)
+                                    return_cache, seq_mask, remat)
     else:
+        mamba = _maybe_remat(functools.partial(
+            mamba_block, cfg, rules=rules, return_cache=return_cache,
+            seq_mask=seq_mask), remat)
+        transformer = _maybe_remat(functools.partial(
+            transformer_block, cfg, rules=rules, return_cache=return_cache,
+            sort_impl=sort_impl), remat)
         for name, _, kind in _plan(cfg):
             layer_caches = []
             for block in getattr(params, name):
                 if kind == "mamba":
-                    x, c = mamba_block(cfg, block, x, rules,
-                                       return_cache=return_cache,
-                                       seq_mask=seq_mask)
+                    x, c = mamba(block, x)
                 else:
-                    x, c, aux = transformer_block(
-                        cfg, block, x, cos, sin, rules,
-                        return_cache=return_cache, sort_impl=sort_impl)
+                    x, c, aux = transformer(block, x, cos, sin)
                     aux_total = aux_total + aux
                 layer_caches.append(c)
             if return_cache:
@@ -237,17 +274,20 @@ def _stack(layer_caches):
 
 
 def _hybrid_forward(cfg, params, x, cos, sin, rules, return_cache,
-                    seq_mask):
+                    seq_mask, remat):
     """Zamba2: groups of [the shared block; ``hybrid_period`` Mamba2
-    layers], the shared block's weights the same in every group."""
+    layers], the shared block's weights the same in every group; only the
+    Mamba2 layers are checkpointed, as in the reference."""
     shared_caches, mamba_caches = [], []
+    mamba = _maybe_remat(functools.partial(
+        mamba_block, cfg, rules=rules, return_cache=return_cache,
+        seq_mask=seq_mask), remat)
     for start, end in hybrid_groups(cfg):
         x, sc, _ = transformer_block(cfg, params.shared, x, cos, sin, rules,
                                      return_cache=return_cache)
         shared_caches.append(sc)
         for block in params.blocks[start:end]:
-            x, c = mamba_block(cfg, block, x, rules,
-                               return_cache=return_cache, seq_mask=seq_mask)
+            x, c = mamba(block, x)
             mamba_caches.append(c)
     if not return_cache:
         return x, {}

@@ -24,6 +24,11 @@ a multiple of 8 and at least 8, over all ``t = B*T`` tokens, and the flat
 assignment order is token-major; assignments past an expert's capacity are
 dropped, so which ones drop depends on the order — padding tokens route
 and use capacity too, as in the reference.
+
+The dispatch's backward pass is deterministic too: every gather is by a
+permutation, or by slots that are unique but for the dropped rows' spare
+one, whose gradient is zero, so no gradient row sums in an order a card
+may change.
 """
 
 from __future__ import annotations
@@ -140,22 +145,24 @@ def _dispatch_sort(cfg, p, xf, rules, sort_impl):
 
     n = t * m.top_k
     flat_e = top_e.reshape(n).to(torch.int32)
-    flat_t = torch.arange(t, dtype=torch.int32,
-                          device=dev).repeat_interleave(m.top_k)
     flat_p = top_p.reshape(n)
 
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     sorted_e, perm = _sort_assignments(flat_e, iota, sort_impl)
     sorted_e, perm = sorted_e.long(), perm.long()
-    sorted_t = flat_t.long()[perm]
     counts = _counts(flat_e, m.n_experts)
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n, device=dev) - offsets[sorted_e]
     keep = rank < cap
     slot = torch.where(keep, sorted_e * cap + rank, m.n_experts * cap)
 
+    # each assignment's row, gathered by the permutation from a token-major
+    # copy: the reference's xf[sorted_t]. Its transpose is then a scatter by
+    # a permutation (one row each) and a sum over top_k in a fixed order;
+    # xf[sorted_t]'s would sum each token's top_k rows in no fixed order.
+    rows = xf[:, None, :].expand(t, m.top_k, dm).reshape(n, dm)[perm]
     buf = xf.new_zeros((m.n_experts * cap + 1, dm))
-    buf[slot] = xf[sorted_t]            # dropped ones share the spare row
+    buf[slot] = rows                    # dropped ones share the spare row
     buf = buf[: m.n_experts * cap].reshape(m.n_experts, cap, dm)
     buf = constrain(buf, rules, "act_expert", None, "act_embed")
 

@@ -10,6 +10,10 @@ allocates and draws nothing — the reference's ``abstract=True`` — which is
 how weights carried over from the reference are loaded without a random
 init first (``interop.lm_from_reference``).
 
+Every parameter is trainable (``requires_grad``); the serving paths run
+under ``torch.inference_mode`` or ``torch.no_grad``, so they build no
+autograd graph.
+
 The port's draws are not JAX's: the same seed gives other weights in the
 two packages. Tests that compare them carry the reference's weights across.
 """
@@ -60,4 +64,4 @@ class Builder:
         else:                              # ssm_a: log of Uniform[1, 16]
             u = torch.rand(shape, generator=gen, device=dev)
             v = torch.log(1.0 + 15.0 * u).to(dtype)
-        return torch.nn.Parameter(v, requires_grad=False)
+        return torch.nn.Parameter(v)

@@ -848,3 +848,123 @@ def test_moe_forward_is_bit_identical_run_to_run(cuda, sort_impl,
     assert torch.equal(e0, e1) and torch.equal(p0, p1)
     per_expert = torch.bincount(e0.reshape(-1), minlength=4)
     assert int(per_expert.min()) > 1
+
+
+def _train_grads(cfg, lm, batch, sort_impl):
+    from repro_torch.models import lm_loss
+    from repro_torch.parallel.sharding import Rules
+    names, params = zip(*lm.named_parameters())
+    loss, _ = lm_loss(cfg, lm, batch, Rules(), sort_impl=sort_impl)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(
+        torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("sort_impl", ["xla", "pallas"])
+def test_train_step_is_bit_identical_run_to_run(cuda, sort_impl):
+    """C6, the backward counterpart of C4: Granite's smoke config in
+    bfloat16 (remat 'dots'), 8 x 64 tokens over 4 experts top-2 — the loss,
+    every gradient (the embedding's and the dispatch gather's sum rows
+    that many tokens share) and the parameters after a train step are the
+    same bits in two runs."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.interop import to_device
+    from repro_torch.models import init_lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.training import Hyper, make_train_step
+    cfg = get_smoke_config("granite-moe-1b-a400m").replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16", remat="dots")
+    batch = {k: to_device(v, cuda) for k, v in next(TokenStream(
+        cfg.vocab_size, 8, 64, seed=0)).items()}
+    runs = []
+    for _ in range(2):
+        lm = init_lm(cfg, seed=0, device=cuda)
+        loss, grads = _train_grads(cfg, lm, batch, sort_impl)
+        opt = init_opt_state(lm)
+        step = make_train_step(cfg, Rules(), Hyper(lr=1e-3, warmup=0,
+                                                   sort_impl=sort_impl))
+        lm, opt, m = step(lm, opt, batch, 1)
+        runs.append((loss, grads, dict(lm.named_parameters()), m))
+    (l0, g0, p0, m0), (l1, g1, p1, m1) = runs
+    assert torch.equal(_bits(l0), _bits(l1))
+    assert g0["embed"].dtype == torch.bfloat16
+    assert all(torch.equal(_bits(g0[k]), _bits(g1[k])) for k in g0)
+    assert all(torch.equal(_bits(p0[k]), _bits(p1[k])) for k in p0)
+    assert all(torch.equal(m0[k], m1[k]) for k in ("loss", "grad_norm"))
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "granite-moe-1b-a400m",
+                                  "minicpm3-4b", "mamba2-370m",
+                                  "zamba2-1.2b", "musicgen-large"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    """Three float32 train steps at the smoke config, the dispatch on the
+    kernels, from the same weights on the card and the CPU (TF32 off):
+    losses within 1e-4 and gradient norms within 5e-4, relative
+    (``chip_smoke.TRAIN_LOSS_RTOL``, ``TRAIN_GNORM_RTOL``)."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import to_device
+    from repro_torch.launch.train import _make_batch_iter
+    from repro_torch.models import init_lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.training import Hyper, make_train_step
+    cfg = get_smoke_config(arch)
+    cpu_lm = init_lm(cfg, seed=0, device="cpu")
+    out = {}
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, lm in (("cpu", cpu_lm),
+                        (cuda, copy.deepcopy(cpu_lm).to(cuda))):
+            opt = init_opt_state(lm)
+            step = make_train_step(cfg, Rules(), Hyper(
+                lr=1e-3, warmup=1, total_steps=3, sort_impl="pallas"))
+            it = _make_batch_iter(cfg, 2, 32)
+            out[str(dev)] = []
+            for s in range(3):
+                batch = {k: to_device(v, dev) for k, v in next(it).items()}
+                lm, opt, m = step(lm, opt, batch, s)
+                out[str(dev)].append((float(m["loss"]),
+                                      float(m["grad_norm"])))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    got, want = np.array(out["cuda"]), np.array(out["cpu"])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-4)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=5e-4)
+
+
+def test_bfloat16_snapshot_round_trips_on_the_card(cuda, tmp_path):
+    """C5: a bf16 model's weights and float32 moments saved from the card
+    and restored onto it, bit for bit, with the reference's manifest."""
+    from repro_torch.checkpoint import CheckpointManager, read_manifest
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import (lm_to_reference, named_from_reference,
+                                     opt_state_to_reference)
+    from repro_torch.models import init_lm
+    from repro_torch.optim import init_opt_state
+    cfg = get_smoke_config("granite-moe-1b-a400m").replace(
+        param_dtype="bfloat16")
+    lm = init_lm(cfg, seed=3, device=cuda)
+    opt = init_opt_state(lm)
+    for t in opt["m"].values():
+        t.normal_()
+    tree = {"params": lm_to_reference(lm), "opt": opt_state_to_reference(opt)}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(5, tree)
+    step, back = mgr.restore_latest(tree, device=cuda)
+    assert step == 5
+    params = named_from_reference(back["params"])
+    moments = named_from_reference(back["opt"]["m"])
+    for name, p in lm.named_parameters():
+        assert params[name].dtype == torch.bfloat16
+        assert params[name].device == p.device
+        assert torch.equal(_bits(params[name]), _bits(p))
+        assert torch.equal(moments[name], opt["m"][name])
+    dtypes = {e["dtype"] for e in read_manifest(str(tmp_path), 5)["leaves"]}
+    assert dtypes == {"bfloat16", "float32", "int32"}

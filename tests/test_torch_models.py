@@ -267,8 +267,8 @@ def test_builder_init_kinds():
     g = torch.Generator().manual_seed(0)
     b = Builder(g, dtype=torch.bfloat16)
     w = b.param((256, 64))
-    assert w.dtype == torch.bfloat16 and not w.requires_grad
-    assert abs(float(w.float().std()) - 256 ** -0.5) < 0.01
+    assert w.dtype == torch.bfloat16 and w.requires_grad    # trainable
+    assert abs(float(w.detach().float().std()) - 256 ** -0.5) < 0.01
     assert torch.equal(b.param((3,), init="zeros"), torch.zeros(3,
                        dtype=torch.bfloat16))
     a = Builder(g).param((1000,), init="ssm_a")
@@ -298,4 +298,4 @@ def test_bfloat16_leaves_carry_across():
     w = lm.blocks[1].moe.w_in
     assert w.dtype == torch.bfloat16
     want = np.asarray(params["blocks"]["moe"]["w_in"][1]).astype(np.float32)
-    np.testing.assert_array_equal(w.float().numpy(), want)
+    np.testing.assert_array_equal(w.detach().float().numpy(), want)
