@@ -115,7 +115,30 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      argsort's; Zamba2-1.2B at its published width and depth, 4 steps on
      one repeated batch, losses finite and falling; and three float32
      train steps of six smoke configs on the card against the CPU
-     (``phase_train``).
+     (``phase_train``);
+  9. plan — the parallel plan (``phase_plan``): 4 gloo ranks of this card
+     (``--plan-rank`` processes) as a ``(data 2, model 2)`` mesh. Granite-MoE
+     1B at its published width and depth in bf16, drawn from seed 0 in
+     every rank and placed by ``shard_lm`` (each rank's bytes printed; the
+     vocab of 49,155 stays replicated): an 8 x 512 prefill (its collective
+     bytes through the host counted, then timed bare), 4 greedy decode
+     steps on a sharded cache and one train step (remat 'dots') with the
+     kernels' dispatch (B2 and B4, then B1, in every rank; every dispatch
+     permutation the stable argsort's), beside the unsharded runs (their
+     differences and phase 6's 0.125 bound printed: the random-init model
+     is chaotic in bf16); the same weights in float32, an 8 x 256 prefill
+     and 4 decode steps sharded against unsharded with each block and the
+     head fed the unsharded run's input, every block's output (at the
+     tokens whose experts are unchanged) and the logits held to
+     ``PLAN_F32_RTOL``, and the check shown to fail with one weight's
+     shards misplaced; one
+     float32 train step sharded against unsharded at Granite's smoke config
+     and at its published width cut to 2 layers (loss, gradient norm, each
+     parameter's change, the moments); the glm4, minicpm3 and zamba2 smoke
+     configs' prefill and decode sharded against unsharded; and
+     ``ring_all_reduce``, ``ring_all_gather``, ``pipeline_forward``,
+     ``compressed_psum`` and ``ep_moe`` at Granite's width on CUDA tensors
+     against their one-process counterparts.
 
 Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
 so the host's time per call counts where it is longer) and ``device_ms``
@@ -131,6 +154,7 @@ when there is no card or any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -246,6 +270,50 @@ TRAIN_SMOKE_SHAPE = (2, 32)           # 128 assignments: the B1 tier
 # within 1e-4 and the gradient norms within 5e-4 (both under 1e-3)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GNORM_RTOL = 5e-4
+
+# phase 9: the parallel plan, 4 gloo ranks of this card as (data 2, model 2)
+PLAN_RANKS = 4
+PLAN_MESH = ((2, 2), ("data", "model"))
+PLAN_ARCH = "granite-moe-1b-a400m"
+PLAN_DECODE_STEPS = 4
+PLAN_DECODE_SEQ = 1024
+PLAN_PATH = ("oets_rows_lex", "bitonic_rows_lex", "merge_adjacent_lex")
+PLAN_SMOKE_SHAPE = (8, 64)
+# the plan is held in float32 at Granite's full width and depth, block by
+# block: in the sharded run each block and the head take the unsharded
+# run's input, since this random-init model amplifies a float32 rounding
+# ~1.4x a layer (its decode logits 7e-3 apart after 24 layers with no
+# routing change) and a routing change is a jump (in float32 2 assignments
+# of layer 0's change, then 86% of layer 23's when the blocks feed each
+# other: PERF.md). Each block's output is compared, relative to its largest
+# element, at the tokens whose experts are unchanged there: a reordered
+# float32 sum rounds at ~1e-6, a misplaced or unreduced shard is off by
+# ~1e-2 to 1. At each layer at most PLAN_F32_FLIPS (a count, or that
+# share) of the assignments may move to another expert (a rounding moves a
+# few near a tie, a misplaced router most)
+PLAN_F32_RTOL = 1e-3
+PLAN_F32_FLIPS = (4, 0.01)
+PLAN_F32_SEQ = 256
+PLAN_F32_STEP_LAYERS = 2
+# one float32 train step sharded against unsharded at lr 1e-3 (step 1 after
+# a one-step warm-up: AdamW's first update moves each element by ~1e-3,
+# lr * sign(g)): each element's change within PLAN_DELTA_ATOL of the
+# unsharded step's, but where a gradient element lies within rounding of 0
+# and changes sign. At Granite's full width one float32 ulp moves the
+# gradients by ~1e-3 of a leaf's largest and so ~4e-5 of the elements
+# (PERF.md; the step prints this floor); a skipped or sign-flipped update
+# is off at most of a leaf's elements, a wrong gradient in its moments by
+# ~1 of the largest
+PLAN_STEP_HYPER = dict(lr=1e-3, warmup=1, total_steps=5, sort_impl="pallas")
+PLAN_DELTA_ATOL = 5e-5
+PLAN_LEAF_OUTLIERS = (8, 1e-2)        # a count, or that share of a leaf
+PLAN_STEP_OUTLIERS = 1e-3             # the share of all elements
+PLAN_MOMENT_RTOL = 1e-2
+PLAN_SMOKE_ARCHS = ("glm4-9b", "minicpm3-4b", "zamba2-1.2b")
+PLAN_SMOKE_ATOL = 2e-3                # the CPU tests' (float32)
+PLAN_EP_TOKENS = 4 * 512              # a rank's tokens
+PLAN_EP_CAPACITY = 4.0                # 2,048 slots an expert: none drops
+PLAN_TIMEOUT = 420
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -1976,14 +2044,16 @@ def mesh_rank(rank: int, world: int, workdir: str) -> int:
     return 0
 
 
-def run_mesh_ranks(world: int, workdir: str, timeout: float = 240):
-    """Start ``world`` ranks of :func:`mesh_rank` on this card and join
-    them within ``timeout`` seconds; kill them all and fail if one fails.
+def run_mesh_ranks(world: int, workdir: str, timeout: float = 240,
+                   flag: str = "--mesh-rank"):
+    """Start ``world`` ranks of :func:`mesh_rank` (or, with ``flag``
+    ``--plan-rank``, of :func:`plan_rank`) on this card and join them
+    within ``timeout`` seconds; kill them all and fail if one fails.
     Returns each rank's output (kept in ``workdir/rank<r>.log``)."""
     logs = [open(os.path.join(workdir, f"rank{r}.log"), "w+")
             for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag,
          str(r), str(world), workdir], stdout=logs[r],
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     deadline = time.monotonic() + timeout
@@ -2006,7 +2076,7 @@ def run_mesh_ranks(world: int, workdir: str, timeout: float = 240):
     if bad:
         raise AssertionError(f"mesh ranks {bad} failed (codes "
                              f"{[procs[r].returncode for r in bad]}):\n"
-                             + outs[bad[0]][-4000:])
+                             + outs[bad[0]][-16000:])
     return outs
 
 
@@ -2912,6 +2982,854 @@ def phase_train(report, device):
     print(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 9 ----------------------------------------------------------------
+
+def collective_bytes():
+    """A ``TorchDispatchMode`` that adds up, on this rank, the bytes of
+    every c10d collective run inside it (each operand's input and output:
+    what gloo copies between the card and the host) in ``.bytes`` and
+    counts the calls by op in ``.calls``. A ``DTensor`` op is let through
+    first (``NotImplemented``), so that the collectives of its
+    redistributions come back through the mode (``CommDebugMode``'s
+    way)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Mode(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes, self.calls = 0, Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if isinstance(func, torch._ops.HigherOrderOperator):
+                return func(*args, **kwargs)
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            out = func(*args, **kwargs)
+            name = func.__name__
+            if func.namespace in ("_c10d_functional", "c10d") \
+                    and not name.startswith(("wait_tensor", "_wrap")):
+                self.calls[name] += 1
+                self.bytes += sum(t.numel() * t.element_size()
+                                  for t in tree_leaves((args, kwargs, out))
+                                  if isinstance(t, torch.Tensor))
+            return out
+    return Mode()
+
+
+def plan_scalar(x) -> float:
+    """A 0-d tensor or ``DTensor`` (every rank calls it) as a float."""
+    return float(x.full_tensor() if hasattr(x, "full_tensor") else x)
+
+
+def plan_rows(mesh, t):
+    """``(rows, start)``: this rank's rows of ``t`` whole along every
+    other axis and the first row's index: a ``DTensor``'s batch split over
+    ``data`` only (a redistribution, which every rank runs), a plain
+    tensor's all of them from 0."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t, 0
+    local = t.redistribute(mesh, (Shard(0), Replicate())).to_local()
+    return local, mesh.get_local_rank("data") * local.shape[0]
+
+
+def plan_rows_err(mesh, got, want) -> float:
+    """The largest ``|got - want|`` over the ranks: ``got`` a ``DTensor``
+    split on its batch axis over ``data`` only, ``want`` the whole tensor,
+    each rank comparing its own rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.parallel.compat import pmax
+    if tuple(got.placements) != (Shard(0), Replicate()):
+        raise AssertionError(f"plan: placements {got.placements}, expected "
+                             "the batch split over data")
+    local, start = plan_rows(mesh, got)
+    err = (local.float() - want[start:start + local.shape[0]].float()).abs()
+    return float(pmax(err.max(), None))
+
+
+def routed(run):
+    """``run()`` with the expert ids of every MoE dispatch recorded (each
+    the whole assignment list); returns ``(result, [ids])``."""
+    from repro_torch.models import moe
+    real, ids = moe._sort_assignments, []
+
+    def rec(flat_e, payload, impl):
+        ids.append(flat_e.clone())
+        return real(flat_e, payload, impl)
+    moe._sort_assignments = rec
+    try:
+        return run(), ids
+    finally:
+        moe._sort_assignments = real
+
+
+def layered(mesh, run, feed=None):
+    """``run()`` with every transformer block's and the head's input
+    recorded whole (the unsharded run's), every block's output as this
+    rank's rows (:func:`plan_rows`), and every MoE dispatch's expert id and
+    kept flag of each assignment (token-major, the whole list). With
+    ``feed`` (an unsharded run's inputs), each block and the head take
+    their input from it instead, placed as their own input: each is then
+    held alone, whatever the blocks before it did. Returns ``(result,
+    inputs, [(rows, start)], [(ids, kept)])``."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.models import model, moe
+    real = model.transformer_block, model._head, moe._pack
+    ins, xs, picks = [], [], []
+
+    def fed(args):
+        args, x = list(args), args[2]
+        if feed is None:
+            ins.append(x.clone())
+        else:
+            x_in = feed[len(ins)]
+            ins.append(x_in)
+            args[2] = distribute_tensor(
+                x_in, x.device_mesh, x.placements, src_data_rank=None) \
+                if isinstance(x, DTensor) else x_in
+        return args
+
+    def block(*args, **kw):
+        out = real[0](*fed(args), **kw)
+        rows, start = plan_rows(mesh, out[0])
+        xs.append((rows.clone(), start))
+        return out
+
+    def head(*args, **kw):
+        return real[1](*fed(args), **kw)
+
+    def pack(xf, top_k, sorted_e, perm, n_experts, cap):
+        buf, slot = real[2](xf, top_k, sorted_e, perm, n_experts, cap)
+        ids, kept = torch.empty_like(sorted_e), torch.empty_like(perm,
+                                                                 dtype=bool)
+        ids[perm], kept[perm] = sorted_e, slot < n_experts * cap
+        picks.append((ids, kept))
+        return buf, slot
+    model.transformer_block, model._head, moe._pack = block, head, pack
+    try:
+        out = run()
+    finally:
+        model.transformer_block, model._head, moe._pack = real
+    return out, ins, xs, picks
+
+
+def plan_block_check(mesh, got, want, top_k: int):
+    """Float32 calls ``got`` (sharded, each block and the head fed the
+    unsharded inputs) against ``want`` (unsharded), each of
+    :func:`layered`, Granite's every layer a MoE layer: each block's output
+    at the tokens whose experts and kept flags there are the unsharded
+    run's (elsewhere the output jumps), and the logits at every token, in
+    this rank's rows, relative to the largest element compared. Returns
+    per output the relative difference and the tokens compared over the
+    ranks (each row once), and per layer the assignments whose expert
+    changed and all of them."""
+    import torch
+    from repro_torch.parallel.compat import pmax, psum
+    n = len(want[0][2])
+    dev = want[0][0].device
+    rel, seen = torch.zeros(n + 1, device=dev), torch.zeros(n + 1,
+                                                            device=dev)
+    moved, total = [0] * n, [0] * n
+
+    def compare(i, rows, start, whole, ok):
+        ok = ok[start:start + len(rows)]
+        if ok.any():
+            g, w = rows[ok], whole[start:start + len(rows)][ok]
+            rel[i] = torch.maximum(rel[i], (g - w).abs().max()
+                                   / w.abs().max())
+            seen[i] += ok.sum()
+    for (g_lg, _, g_xs, g_picks), (w_lg, _, w_xs, w_picks) in zip(
+            got, want, strict=True):
+        b, sq = w_lg.shape[:2]
+        for i, ((gi, gk), (wi, wk)) in enumerate(zip(g_picks, w_picks,
+                                                     strict=True)):
+            ids = (gi != wi).reshape(b, sq, top_k)
+            moved[i] += int(ids.sum())
+            total[i] += ids.numel()
+            same = ~(ids | (gk != wk).reshape(b, sq, top_k)).any(-1)
+            compare(i, *g_xs[i], w_xs[i][0], same)
+        compare(n, *plan_rows(mesh, g_lg), w_lg,
+                torch.ones((b, sq), dtype=torch.bool, device=dev))
+    copies = mesh.size() // mesh.size(mesh.mesh_dim_names.index("data"))
+    return (pmax(rel, None).tolist(),
+            [round(c / copies) for c in psum(seen, None).tolist()], moved,
+            total)
+
+
+def plan_block_held(rel, seen, moved, total) -> bool:
+    """Whether :func:`plan_block_check`'s results hold: every output
+    compared at some token and within ``PLAN_F32_RTOL``, and at each layer
+    at most ``PLAN_F32_FLIPS`` of the assignments moved to another expert
+    (a rounding moves a few near a tie, a misplaced router most)."""
+    return min(seen) > 0 and max(rel) <= PLAN_F32_RTOL and all(
+        m <= max(PLAN_F32_FLIPS[0], PLAN_F32_FLIPS[1] * t)
+        for m, t in zip(moved, total))
+
+
+def plan_granite(rank, mesh, device, out):
+    """Granite-MoE 1B at full width on the (data 2, model 2) mesh in bf16,
+    the issue's run: the unsharded prefill and greedy decode in every rank,
+    the unsharded train step in rank 0, then the same weights (redrawn
+    from seed 0) placed by ``shard_lm``, and the sharded prefill (counted,
+    then timed bare), decode and train step beside them. bf16 at this
+    width and random weights is chaotic (the routing of most assignments
+    changes by the last layer), so the two runs' differences and phase 6's
+    bound are printed, not held: :func:`plan_granite_f32` holds the same
+    plan in float32."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.models import decode_step, forward, init_cache, init_lm
+    from repro_torch.models.param import distribute_tree, shard_lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.compat import set_mesh
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.training import Hyper, make_train_step
+    rules, say = Rules(), out["say"]
+    cfg, lm, secs = full_width(device, PLAN_ARCH)
+    whole = sum(p.numel() * p.element_size() for p in lm.parameters())
+    tokens = plan_tokens(cfg, DISPATCH_SEQ, device)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device)
+    hyper = Hyper(**TRAIN_HYPER)
+    with torch.inference_mode():
+        ref_logits, ref_ids = routed(lambda: forward(
+            cfg, lm, {"tokens": tokens}, rules, sort_impl="pallas")[0])
+        cache, cache_axes = init_cache(cfg, SERVE_BATCH, PLAN_DECODE_SEQ,
+                                       device=device)
+        fed, ref_dec = [tokens[:, :1]], []
+        for i in range(PLAN_DECODE_STEPS):
+            lg = decode_step(cfg, lm, cache, fed[i], i, rules,
+                             sort_impl="pallas")[0]
+            ref_dec.append(lg)
+            nxt = lg[:, -1].argmax(-1, keepdim=True).to(tokens.dtype)
+            torch.distributed.broadcast(nxt, 0)    # rank 0's, in every rank
+            fed.append(nxt)
+        del cache
+    if rank == 0:
+        ms = []
+        m = timed(make_train_step(cfg, rules, hyper), ms)(
+            lm, init_opt_state(lm), batch, 0)[2]
+        ref_step = (plan_scalar(m["loss"]), plan_scalar(m["grad_norm"]))
+        say(f"unsharded train step in rank 0 (remat {cfg.remat!r}): loss "
+            f"{ref_step[0]}, grad_norm "
+            f"{ref_step[1]}, {ms[0]:.2f} ms")
+        del m, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = init_lm(cfg, seed=0, device=device)      # the step moved it
+
+    # ---- placed on the mesh ----
+    t0 = time.perf_counter()
+    shard_lm(lm, rules, mesh, src_data_rank=None)
+    torch.cuda.synchronize()
+    local = sum(p.to_local().numel() * p.element_size()
+                for p in lm.parameters())
+    want = {"embed": (Shard(1), Replicate()), "head": (Shard(0), Replicate())}
+    for name, pl in want.items():
+        if tuple(getattr(lm, name).placements) != pl:
+            raise AssertionError(f"plan: {name} placed "
+                                 f"{getattr(lm, name).placements}, expected "
+                                 f"{pl} (vocab {cfg.vocab_size} replicated)")
+    say(f"shard_lm in {time.perf_counter() - t0:.2f} s: {local} B of the "
+        f"{whole} B of weights in this rank ({local / whole:.4f}); vocab "
+        f"{cfg.vocab_size} does not divide by 2, so embed is "
+        f"{want['embed']} and head {want['head']} (the vocab axis "
+        "replicated)")
+    out["param_bytes"] = local
+    # the sharded runs under no_grad: under inference_mode torch 2.11's
+    # DTensor raises in every redistribution (no sharding strategy for the
+    # aten.detach_ that its autograd Function takes there)
+    with torch.no_grad():           # the cache the decode steps write
+        cache_s = distribute_tree(
+            init_cache(cfg, SERVE_BATCH, PLAN_DECODE_SEQ, device=device)[0],
+            cache_axes, rules, mesh, src_data_rank=None)
+    launches = Counter()
+    with set_mesh(mesh):
+        seen, undo = recorded_dispatches()
+        mode = collective_bytes()
+        try:
+            with torch.no_grad(), mode:
+                (logits, ids), runs = launch_counts(lambda: routed(
+                    lambda: forward(cfg, lm, {"tokens": tokens}, rules,
+                                    sort_impl="pallas")[0]))
+        finally:
+            undo()
+        launches.update(runs)
+        err = plan_rows_err(mesh, logits, ref_logits)
+        if rank == 0:
+            mine = logits.to_local().float()
+            d = (mine - ref_logits[:mine.shape[0]].float()).abs()
+            flips = [int((a != b).sum()) for a, b in zip(ids, ref_ids)]
+            say(f"prefill, rank 0's rows: sharded against unsharded max "
+                f"{float(d.max())}, mean {float(d.mean())}, share over "
+                f"{DISPATCH_LOGIT_ATOL} "
+                f"{float((d > DISPATCH_LOGIT_ATOL).float().mean())}; routing"
+                f" changed at {flips} of "
+                f"{SERVE_BATCH * DISPATCH_SEQ * cfg.moe.top_k} assignments, "
+                "layer by layer")
+            del mine, d
+        del logits
+        if not all(torch.isfinite(t).all() for t in (ref_logits,)):
+            raise AssertionError("plan: the unsharded logits are not finite")
+        n_moe = cfg.n_layers - cfg.moe.first_dense
+        if len(seen) != n_moe or not all(
+                torch.equal(g.long(), w.long())
+                for got, ref in seen for g, w in zip(got, ref)):
+            raise AssertionError("plan: a dispatch's permutation differs from "
+                                 "the stable argsort's")
+        del seen
+        out["prefill_bytes"] = mode.bytes
+        ms = []
+        with torch.no_grad():       # bare: no mode, nothing recorded
+            logits, runs = launch_counts(lambda: timed(forward, ms)(
+                cfg, lm, {"tokens": tokens}, rules, sort_impl="pallas")[0])
+        launches.update(runs)
+        finite = bool(torch.isfinite(logits.to_local()).all())
+        del logits
+        say(f"sharded prefill {SERVE_BATCH} x {DISPATCH_SEQ}, 'pallas': "
+            f"{ms[0]:.2f} ms (a second call, bare); logits max abs "
+            f"difference from the unsharded over every rank's rows {err} "
+            f"(phase 6's {DISPATCH_LOGIT_ATOL}: "
+            f"{'held' if err <= DISPATCH_LOGIT_ATOL else 'missed'}); "
+            f"launches {used(runs)}; {n_moe} dispatch permutations in this "
+            f"rank equal to the stable argsort's; its collectives move "
+            f"{mode.bytes} B through the host in this rank "
+            f"({dict(mode.calls)}), counted on the first call")
+        if not finite:
+            raise AssertionError("plan: the sharded logits are not finite")
+        errs, ms = [], []
+        for i in range(PLAN_DECODE_STEPS):
+            with torch.no_grad():
+                lg, runs = launch_counts(lambda: timed(decode_step, ms)(
+                    cfg, lm, cache_s, fed[i], i, rules, sort_impl="pallas")[0])
+            launches.update(runs)
+            errs.append(plan_rows_err(mesh, lg, ref_dec[i]))
+        steps = ", ".join(f"{t:.2f}" for t in ms)
+        say(f"sharded decode, {PLAN_DECODE_STEPS} steps on the sharded cache "
+            f"fed the unsharded run's tokens: {steps} ms; logits max abs "
+            f"differences over every rank's rows {errs} "
+            f"(phase 6's {DISPATCH_LOGIT_ATOL}: "
+            f"{'held' if max(errs) <= DISPATCH_LOGIT_ATOL else 'missed'})")
+        if not all(np.isfinite(errs)):
+            raise AssertionError("plan: the sharded decode is not finite")
+        del cache_s
+        out["peak_before_step"] = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        opt = init_opt_state(lm)
+        ms = []
+        (_, _, m), runs = launch_counts(lambda: timed(
+            make_train_step(cfg, rules, hyper), ms)(lm, opt, batch, 0))
+        launches.update(runs)
+        step = (plan_scalar(m["loss"]), plan_scalar(m["grad_norm"]))
+    out["train_peak"] = torch.cuda.max_memory_allocated(device)
+    say(f"sharded train step (remat {cfg.remat!r}, 'pallas'): loss {step[0]},"
+        f" grad_norm {step[1]}, {ms[0]:.2f} ms; peak {out['train_peak']} B "
+        f"in this rank; launches {used(runs)}")
+    if rank == 0:
+        rel = (abs(step[0] - ref_step[0]) / abs(ref_step[0]),
+               abs(step[1] - ref_step[1]) / abs(ref_step[1]))
+        say(f"train step sharded against unsharded: relative differences "
+            f"loss {rel[0]:.3g}, grad_norm {rel[1]:.3g} (bf16, printed)")
+    if not all(np.isfinite(step)):
+        raise AssertionError("plan: the sharded step is not finite")
+    out["launches"] = dict(launches)
+    del lm, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plan_tokens(cfg, seq: int, device):
+    """The prefill's ``(SERVE_BATCH, seq)`` tokens, from seed 1."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (SERVE_BATCH, seq))).to(device)
+
+
+def plan_config(n_layers: int = 0):
+    """Granite-MoE 1B's published config in float32, its depth cut to
+    ``n_layers`` where given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(PLAN_ARCH).replace(param_dtype="float32",
+                                        compute_dtype="float32")
+    return cfg.replace(n_layers=n_layers) if n_layers else cfg
+
+
+def plan_granite_f32(mesh, device, out):
+    """The plan's check at Granite's full width and depth: the same
+    weights in float32, unsharded then placed by ``shard_lm``, an
+    ``SERVE_BATCH`` x ``PLAN_F32_SEQ`` prefill and ``PLAN_DECODE_STEPS``
+    decode steps (teacher-forced) with the kernels' dispatch; in the
+    sharded runs every block and the head take the unsharded run's input
+    (:func:`layered`), so each is held alone by :func:`plan_block_check`:
+    the model amplifies a float32 rounding through its depth whatever the
+    plan. Then the check is shown to fail at decode step 0 when layer 0's
+    experts' weights have the rows of every shard rolled by one."""
+    import gc
+    import torch
+    from torch.distributed.tensor import Shard
+    from repro_torch.models import decode_step, forward, init_cache, init_lm
+    from repro_torch.models.param import distribute_tree, shard_lm
+    from repro_torch.parallel.compat import set_mesh
+    from repro_torch.parallel.sharding import Rules
+    rules, say = Rules(), out["say"]
+    cfg = plan_config()
+    lm = init_lm(cfg, seed=0, device=device)
+    tokens = plan_tokens(cfg, PLAN_F32_SEQ, device)
+    seq = PLAN_DECODE_STEPS
+
+    def prefill():
+        return forward(cfg, lm, {"tokens": tokens}, rules,
+                       sort_impl="pallas")[0]
+
+    def decode(cache, i):
+        return decode_step(cfg, lm, cache, tokens[:, i:i + 1], i, rules,
+                           sort_impl="pallas")[0]
+
+    def report(what, got, want_, ms=""):
+        res = plan_block_check(mesh, got, want_, cfg.moe.top_k)
+        rel, seen, moved, total = res
+        say(f"float32 at full width, {what} sharded against unsharded, "
+            f"each block fed the unsharded input{ms}: experts changed at "
+            f"{moved} of {total[0]} assignments, layer by layer; tokens "
+            f"compared {seen} (every block, then the logits), largest "
+            f"relative difference {max(rel):.3g} (bound {PLAN_F32_RTOL}), by"
+            f" output {[float(f'{r:.3g}') for r in rel]}")
+        return plan_block_held(*res)
+    with torch.no_grad():
+        want = [layered(mesh, prefill)]
+        cache, axes = init_cache(cfg, SERVE_BATCH, seq, device=device)
+        want += [layered(mesh, lambda: decode(cache, i)) for i in range(seq)]
+        del cache
+        shard_lm(lm, rules, mesh, src_data_rank=None)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def sharded_cache():
+            return distribute_tree(
+                init_cache(cfg, SERVE_BATCH, seq, device=device)[0], axes,
+                rules, mesh, src_data_rank=None)
+        with set_mesh(mesh):
+            ms = []
+            got = [layered(mesh, timed(prefill, ms), want[0][1])]
+            cache = sharded_cache()
+            got += [layered(mesh, timed(lambda: decode(cache, i), ms),
+                            want[1 + i][1]) for i in range(seq)]
+            held = [report(f"prefill {SERVE_BATCH} x {PLAN_F32_SEQ}",
+                           got[:1], want[:1],
+                           f" ({ms[0]:.2f} ms, recording included)"),
+                    report(f"{seq} decode steps", got[1:], want[1:],
+                           f" ({', '.join(f'{t:.2f}' for t in ms[1:])} ms)")]
+            if not all(held):
+                raise AssertionError("plan: the float32 sharded runs differ")
+            del got
+            # the check's power: a misplaced shard must fail it (the
+            # experts' weights: at step 0 the one key makes the attention's
+            # output v whatever the query)
+            w = lm.blocks[0].moe.w_in
+            dim = next(q.dim for q in w.placements if isinstance(q, Shard))
+            shard = w.to_local()
+            shard.copy_(shard.roll(1, dim))
+            held = report(
+                f"decode step 0 with blocks.0.moe.w_in {tuple(w.placements)}"
+                " rolled by a row in every shard",
+                [layered(mesh, lambda: decode(sharded_cache(), 0),
+                         want[1][1])], want[1:2])
+            shard.copy_(shard.roll(-1, dim))
+            if held:
+                raise AssertionError("plan: the float32 check passed a "
+                                     "misplaced weight")
+    del lm, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plan_step_diff(init, want, got):
+    """Per leaf of one float32 step ``got`` against ``want`` (each
+    ``(params, opt)``, from ``init``'s weights: ``init`` a dict, or a
+    pair of dicts where ``got`` started from other ones), each rank on its
+    own shards of ``got``'s ``DTensor``s: ``{name: [elements whose change
+    is off by more than PLAN_DELTA_ATOL, elements whose change in want is
+    above it, elements, the largest difference of changes, the largest
+    moment difference over the leaf's largest]}``, counts summed over the
+    ranks with each element once."""
+    import math
+    import torch
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    from repro_torch.parallel.compat import pmax, psum
+    (p0, o0), (p1, o1) = want, got
+    i0, i1 = init if isinstance(init, tuple) else (init, init)
+    out, sharded = {}, False
+    with torch.no_grad():
+        for k, w0 in i0.items():
+            g = p1[k]
+            if isinstance(g, DTensor):
+                sharded = True
+                copies = math.prod(         # the ranks holding an element
+                    g.device_mesh.size(i) for i, q in enumerate(g.placements)
+                    if not isinstance(q, Shard))
+
+                def mine(t, g=g):   # this rank's shard of a whole tensor
+                    return distribute_tensor(t.detach(), g.device_mesh,
+                                             g.placements,
+                                             src_data_rank=None).to_local()
+
+                def local(t):
+                    return t.to_local()
+            else:
+                copies = 1
+
+                def mine(t):
+                    return t.detach()
+                local = mine
+            d_want = mine(p0[k]) - mine(w0)
+            err = ((local(g) - mine(i1[k])) - d_want).abs()
+            row = [(err > PLAN_DELTA_ATOL).sum() / copies,
+                   (d_want.abs() > PLAN_DELTA_ATOL).sum() / copies,
+                   torch.tensor(err.numel() / copies, device=err.device),
+                   err.max()]
+            for mom in ("m", "v"):
+                ref = o0[mom][k]
+                row.append((local(o1[mom][k]) - mine(ref)).abs().max()
+                           / ref.abs().max().clamp(min=1e-30))
+            out[k] = torch.stack([r.double() for r in row[:4]]
+                                 + [torch.maximum(*row[4:]).double()])
+    table = torch.stack(list(out.values()))
+    if sharded:
+        table = torch.cat([psum(table[:, :3].contiguous(), None),
+                           pmax(table[:, 3:].contiguous(), None)], 1)
+    return {k: row for k, row in zip(out, table.tolist())}
+
+
+def plan_step_check(say, label, cfg, batch, mesh, device):
+    """One float32 train step of ``cfg`` (weights from seed 0, remat
+    'none') sharded against unsharded, in every rank, the sharded step's
+    experts the unsharded step's (:func:`pinned_experts`): the loss and
+    gradient norm within phase 8's bounds; each parameter's change from
+    the initial weights within ``PLAN_DELTA_ATOL`` of the unsharded step's
+    but at ``PLAN_LEAF_OUTLIERS`` of a leaf's elements and
+    ``PLAN_STEP_OUTLIERS`` of all (each off by at most twice the lr);
+    most changes above that bound; the moments within ``PLAN_MOMENT_RTOL``
+    of each leaf's largest. Printed beside it, as the floor of rounding:
+    the unsharded step from the weights nudged by one float32 ulp each."""
+    import copy
+    import torch
+    from repro_torch.models import init_lm
+    from repro_torch.models.param import shard_lm
+    from repro_torch.optim import init_opt_state
+    from repro_torch.parallel.compat import set_mesh
+    from repro_torch.parallel.sharding import Rules
+    from repro_torch.training import Hyper, make_train_step
+    rules = Rules()
+    hyper = Hyper(**PLAN_STEP_HYPER)
+    lm = init_lm(cfg, seed=0, device=device)
+    init = {k: v.detach().clone() for k, v in lm.named_parameters()}
+    experts = []
+
+    def step(l, sharded=False):
+        opt = init_opt_state(l)
+        with set_mesh(mesh) if sharded else contextlib.nullcontext(), \
+                pinned_experts(experts, replay=bool(experts)):
+            l, opt, m = make_train_step(cfg, rules, hyper)(l, opt, batch, 1)
+        return (dict(l.named_parameters()), opt), \
+            {k: plan_scalar(v) for k, v in m.items()}
+    want, m0 = step(copy.deepcopy(lm))
+    nudged = copy.deepcopy(lm)
+    gen = torch.Generator(device=device).manual_seed(9)
+    with torch.no_grad():
+        for p in nudged.parameters():
+            p.mul_(1 + (torch.randint(0, 2, p.shape, generator=gen,
+                                      device=device) * 2 - 1) * 2.0 ** -23)
+    start = {k: v.detach().clone() for k, v in nudged.named_parameters()}
+    floor = plan_step_diff((init, start), want, step(nudged)[0])
+    del nudged, start
+    got, m1 = step(shard_lm(copy.deepcopy(lm), rules, mesh,
+                            src_data_rank=None), sharded=True)
+    diff = plan_step_diff(init, want, got)
+    lr = m0["lr"]
+    rel = (abs(m1["loss"] - m0["loss"]) / abs(m0["loss"]),
+           abs(m1["grad_norm"] - m0["grad_norm"]) / abs(m0["grad_norm"]))
+
+    def total(table):
+        rows = list(table.values())
+        return ([round(sum(r[i] for r in rows)) for i in range(3)]
+                + [max(r[i] for r in rows) for i in (3, 4)])
+    (off, moved, size, worst, mom), floor_t = total(diff), total(floor)
+    leaf_ok = all(r[0] <= max(PLAN_LEAF_OUTLIERS[0],
+                              PLAN_LEAF_OUTLIERS[1] * r[2])
+                  for r in diff.values())
+    share = max(r[0] / r[2] for r in diff.values())
+    say(f"{label}, float32, one step of {tuple(batch['tokens'].shape)} "
+        f"sharded against unsharded: loss {m1['loss']} / {m0['loss']}, "
+        f"grad_norm {m1['grad_norm']} / {m0['grad_norm']}; relative "
+        f"differences {rel[0]:.3g} (bound {TRAIN_LOSS_RTOL}), {rel[1]:.3g} "
+        f"({TRAIN_GNORM_RTOL}); parameter changes (lr {lr}) off by more "
+        f"than {PLAN_DELTA_ATOL} at {off} of {size} elements (bound "
+        f"{PLAN_STEP_OUTLIERS:g} of them), at most {worst:.3g}, a leaf's "
+        f"share at most {share:.3g} (bound {PLAN_LEAF_OUTLIERS}); {moved} "
+        f"changes above {PLAN_DELTA_ATOL}; moments within {mom:.3g} of "
+        f"each leaf's largest ({PLAN_MOMENT_RTOL}); the unsharded step "
+        f"from weights nudged by one ulp: {floor_t[0]} off, moments within "
+        f"{floor_t[4]:.3g}")
+    if not (rel[0] <= TRAIN_LOSS_RTOL and rel[1] <= TRAIN_GNORM_RTOL
+            and leaf_ok and off <= PLAN_STEP_OUTLIERS * size
+            and worst <= 2 * lr * 1.01 and moved > size / 2
+            and mom <= PLAN_MOMENT_RTOL and m1["lr"] == lr
+            and PLAN_DELTA_ATOL < lr / 10):
+        raise AssertionError(f"plan: the sharded step of {label} differs")
+
+
+@contextlib.contextmanager
+def pinned_experts(experts: list, replay: bool):
+    """``models.moe._top_k`` patched: each call's experts appended to
+    ``experts``, or, with ``replay``, taken from it in call order, with
+    their probabilities. A routing change is a jump that this model's width
+    makes likely somewhere (PERF.md), and it moves a few tokens' gradients
+    to other experts; with the experts pinned the two steps differ by
+    rounding alone, and the routing is held by :func:`plan_block_check`.
+    Every call of the forward is one call here (remat 'none')."""
+    from repro_torch.models import moe
+    real, replayed = moe._top_k, iter(experts)
+
+    def top_k(probs, k):
+        if replay:
+            idx = next(replayed)
+            return probs.gather(-1, idx), idx
+        vals, idx = real(probs, k)
+        experts.append(idx)
+        return vals, idx
+    moe._top_k = top_k
+    try:
+        yield
+    finally:
+        moe._top_k = real
+    if replay and next(replayed, None) is not None:
+        raise AssertionError("plan: the replayed step made fewer routings")
+
+
+def plan_steps(mesh, device, out):
+    """:func:`plan_step_check` at Granite's smoke config and at its
+    published width cut to ``PLAN_F32_STEP_LAYERS`` layers, the batch
+    phase 8's."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(PLAN_ARCH).replace(remat="none")
+    plan_step_check(out["say"], f"{PLAN_ARCH} smoke", cfg,
+                    train_batch(cfg, *PLAN_SMOKE_SHAPE, device), mesh, device)
+    cfg = plan_config(PLAN_F32_STEP_LAYERS).replace(remat="none")
+    plan_step_check(out["say"], f"{PLAN_ARCH} at full width, "
+                    f"{PLAN_F32_STEP_LAYERS} layers", cfg,
+                    train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device), mesh,
+                    device)
+
+
+def plan_smoke_families(mesh, device, out):
+    """The other families at their smoke configs in float32 (GQA, MLA, the
+    Mamba2 hybrid): a prefill and two decode steps sharded against
+    unsharded, in every rank, within the CPU tests' bound."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, forward, init_cache, init_lm
+    from repro_torch.models.param import distribute_tree, shard_lm
+    from repro_torch.parallel.compat import set_mesh
+    from repro_torch.parallel.sharding import Rules
+    rules = Rules()
+    for arch in PLAN_SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        lm = init_lm(cfg, seed=0, device=device)
+        lm_s = shard_lm(copy.deepcopy(lm), rules, mesh, src_data_rank=None)
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, 32))).to(device)
+        errs = []
+        with torch.no_grad():
+            want = forward(cfg, lm, {"tokens": tokens}, rules)[0]
+            with set_mesh(mesh):
+                got = forward(cfg, lm_s, {"tokens": tokens}, rules)[0]
+            errs.append(float((got.full_tensor() - want).abs().max()))
+            cache, axes = init_cache(cfg, SERVE_BATCH, 8, device=device)
+            cache_s = distribute_tree(
+                init_cache(cfg, SERVE_BATCH, 8, device=device)[0], axes,
+                rules, mesh, src_data_rank=None)
+            for i in range(2):
+                t = tokens[:, i:i + 1]
+                want = decode_step(cfg, lm, cache, t, i, rules)[0]
+                with set_mesh(mesh):
+                    got = decode_step(cfg, lm_s, cache_s, t, i, rules)[0]
+                errs.append(float((got.full_tensor() - want).abs().max()))
+        out["say"](f"{arch} smoke, float32, sharded against unsharded: "
+                   f"prefill and 2 decode steps, logits max abs differences "
+                   f"{errs} (tolerance {PLAN_SMOKE_ATOL})")
+        if not max(errs) <= PLAN_SMOKE_ATOL:
+            raise AssertionError(f"plan: {arch}'s sharded run differs")
+
+
+def plan_collectives(rank, world, device, out):
+    """The ring, the pipeline, the compressed sum and expert parallelism
+    on CUDA tensors over the ``world`` ranks, each held to its
+    single-process counterpart computed here from every rank's inputs
+    (each rank draws them all from one seed)."""
+    import dataclasses
+    import types
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe
+    from repro_torch.models.moe_ep import ep_moe
+    from repro_torch.parallel.compat import make_mesh
+    from repro_torch.parallel.compression import compressed_psum
+    from repro_torch.parallel.pipeline import pipeline_forward
+    from repro_torch.parallel.ring import ring_all_gather, ring_all_reduce
+    from repro_torch.parallel.sharding import Rules
+    say = out["say"]
+    mesh = make_mesh((world,), ("ep",), "cuda")
+    group = mesh.get_group("ep")
+    gen = torch.Generator(device=device).manual_seed(5)
+    y = torch.randn(world, 8192, generator=gen, device=device)
+    ms = []
+    got = timed(ring_all_reduce, ms)(y[rank], group)
+    err = float((got - y.sum(0)).abs().max())
+    gathered = ring_all_gather(y[rank], group)
+    say(f"ring_all_reduce of 8,192 float32 a rank: {ms[0]:.2f} ms, max abs "
+        f"difference from the sum {err}; ring_all_gather equal: "
+        f"{torch.equal(gathered, y)}")
+    if not (err <= 1e-4 and torch.equal(gathered, y)):
+        raise AssertionError("plan: the ring collectives differ")
+    ws = torch.randn(world, 256, 256, generator=gen, device=device) * 0.06
+    mbs = torch.randn(6, 16, 256, generator=gen, device=device)
+    pf = pipeline_forward(lambda w, x: torch.tanh(x @ w), ws[rank], mbs,
+                          group)
+    if rank == world - 1:
+        want = mbs
+        for w in ws:
+            want = torch.tanh(want @ w)
+        err = float((pf - want).abs().max())
+        say(f"pipeline_forward, {world} stages, 6 microbatches: last stage "
+            f"max abs difference from the sequential composition {err}")
+        if not err <= 1e-5:
+            raise AssertionError("plan: the pipeline differs")
+    mean, res = compressed_psum(y[rank], group, torch.zeros_like(y[rank]))
+    scale = torch.clamp(y.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
+    want_mean = q.to(torch.int32).sum(0).float() * scale / world
+    want_res = (y[rank].double() - q[rank].double() * scale.double()).float()
+    bits = torch.equal(mean, want_mean) and torch.equal(res, want_res)
+    say(f"compressed_psum: mean and residual bit-equal to the one-process "
+        f"computation: {bits}; max abs difference from the true mean "
+        f"{float((mean - y.mean(0)).abs().max())}")
+    if not bits:
+        raise AssertionError("plan: compressed_psum differs")
+    cfg = get_config(PLAN_ARCH)
+    cfg = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=PLAN_EP_CAPACITY))
+    m, dm, bf = cfg.moe, cfg.d_model, torch.bfloat16
+    x = torch.randn(world * PLAN_EP_TOKENS, dm, generator=gen,
+                    device=device).to(bf)
+    p = types.SimpleNamespace(
+        router=(torch.randn(dm, m.n_experts, generator=gen, device=device)
+                * dm ** -0.5).to(bf),
+        w_in=(torch.randn(m.n_experts, dm, 2 * m.d_expert, generator=gen,
+                          device=device) * dm ** -0.5).to(bf),
+        w_out=(torch.randn(m.n_experts, m.d_expert, dm, generator=gen,
+                           device=device) * m.d_expert ** -0.5).to(bf))
+    ms = []
+    for _ in range(2):
+        y_ep, aux = timed(ep_moe, ms)(cfg, mesh, "ep", x, p.router, p.w_in,
+                                      p.w_out)
+    y_ep = y_ep.full_tensor()
+    if rank == 0:
+        with torch.inference_mode():
+            y_ref, aux_ref = moe(cfg, p, x[None], Rules())
+        err = float((y_ep.float() - y_ref[0].float()).abs().max())
+        say(f"ep_moe at {PLAN_ARCH}'s width ({m.n_experts} experts, "
+            f"{m.n_experts // world} a rank, top-{m.top_k}, {PLAN_EP_TOKENS} "
+            f"tokens a rank, capacity factor {PLAN_EP_CAPACITY}): "
+            f"{ms[-1]:.2f} ms (second call); max abs difference from moe in "
+            f"one rank {err} (tolerance {DISPATCH_LOGIT_ATOL}); aux "
+            f"{float(aux)} (summed over the ranks) / {float(aux_ref)}")
+        if not err <= DISPATCH_LOGIT_ATOL:
+            raise AssertionError("plan: ep_moe differs from moe")
+
+
+def plan_rank(rank: int, world: int, workdir: str) -> int:
+    """One rank of phase 9: joins a gloo group of ``world`` processes on
+    ``cuda:0`` (DTensor's collectives on CUDA operands, which gloo stages
+    through the host itself), runs :func:`plan_granite`,
+    :func:`plan_granite_f32`, :func:`plan_steps`,
+    :func:`plan_smoke_families` and :func:`plan_collectives`, and prints
+    its lines and one ``PLAN_RESULT`` JSON line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.compat import make_mesh
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{workdir}/rendezvous", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    t0 = time.perf_counter()
+
+    def say(text):
+        print(f"[plan] rank {rank}: {text}", flush=True)
+    out = {"rank": rank, "say": say}
+    try:
+        mesh = make_mesh(*PLAN_MESH, "cuda")
+        plan_granite(rank, mesh, device, out)
+        plan_granite_f32(mesh, device, out)
+        plan_steps(mesh, device, out)
+        plan_smoke_families(mesh, device, out)
+        plan_collectives(rank, world, device, out)
+    finally:
+        dist.destroy_process_group()
+    del out["say"]
+    out["peak"] = max(out["peak_before_step"],
+                      torch.cuda.max_memory_allocated(device))
+    out["seconds"] = time.perf_counter() - t0
+    print("PLAN_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_plan(report, device):
+    """The parallel plan (``phase_plan``): ``PLAN_RANKS`` gloo ranks of
+    :func:`plan_rank` on this card; rank 0's lines printed, every rank's
+    B1, B2 and B4 launches required and added to the kernels' rows."""
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_mesh_ranks(PLAN_RANKS, tmp, timeout=PLAN_TIMEOUT,
+                              flag="--plan-rank")
+    results = []
+    for r, text in enumerate(outs):
+        for line in text.splitlines():
+            if line.startswith("[plan]") and (
+                    r == 0 or any(k in line for k in (
+                        "B of the", "through the host", "pipeline_forward"))):
+                print(line)
+            elif line.startswith("PLAN_RESULT "):
+                results.append(json.loads(line.split(" ", 1)[1]))
+    if len(results) != PLAN_RANKS:
+        raise AssertionError("plan: a rank printed no result")
+    for res in results:
+        for kname in PLAN_PATH:
+            if res["launches"].get(kname, 0) == 0:
+                raise AssertionError(f"plan: rank {res['rank']} never "
+                                     f"launched {kname}")
+        for kname, c in res["launches"].items():
+            report.rows[kname]["launches"] += c
+        print(f"[plan] rank {res['rank']}: {res['seconds']:.1f} s, peak "
+              f"{res['peak']} B (train step {res['train_peak']} B), "
+              f"launches {used(res['launches'])}")
+    print(f"[plan] phase took {time.perf_counter() - t_phase:.1f} s with the "
+          f"processes' start")
+
+
 def synthetic_soak_words():
     """The soak's 200 words: ``tests/test_chaos.py``'s generator."""
     import numpy as np
@@ -2924,6 +3842,8 @@ def main() -> int:
     import torch
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--plan-rank"]:
+        return plan_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2953,6 +3873,7 @@ def main() -> int:
     phase_serve(report, device)
     phase_families(report, device)
     phase_train(report, device)
+    phase_plan(report, device)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

@@ -7,8 +7,16 @@ Atomicity: writes land in <dir>/.tmp_<N>, then one os.replace renames the
            the latest checkpoint.
 Async:     save() optionally returns immediately; the writer thread is
            joined before the next save (single in-flight snapshot).
-Devices:   restore() puts every leaf on ``device`` — the port's version of
-           the reference's re-sharding on restore.
+Devices:   restore() puts every leaf on ``device``, or with ``shardings``
+           (a tree of ``parallel.sharding.NamedSharding``) places each leaf
+           on its mesh as a ``DTensor`` — the reference's re-sharding on
+           restore, onto any mesh shape.
+Meshes:    a tree of ``DTensor``s is saved as its global arrays, the bytes
+           of an unsharded save: every rank calls save() (the shards are
+           gathered), rank 0 writes, and every rank returns once the
+           snapshot is in place (the manager's ranks meet at its next
+           wait(), after rank 0's writer); a sharded restore_latest takes
+           rank 0's latest step in every rank.
 
 The format is the reference's, byte for byte in the manifest: a tree is a
 nest of dicts, lists and tuples (``None`` holds no leaf) flattened in the
@@ -136,6 +144,13 @@ def _host(leaf) -> np.ndarray:
         else np.asarray(leaf)
 
 
+def _sharded(tree) -> bool:
+    """Whether ``tree`` holds a ``DTensor``: its global arrays are written
+    by rank 0 alone, and every rank must take part."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(leaf, DTensor) for _, leaf in _flatten(tree))
+
+
 def _save_npy(path: str, arr: np.ndarray) -> str:
     """``arr`` written as ``np.save`` writes it; returns its manifest dtype.
     A bfloat16 leaf gets the header the reference's ``ml_dtypes`` array
@@ -157,10 +172,18 @@ def save(directory: str, step: int, tree: Any, extra: Any = None) -> str:
     ``extra``: optional JSON-serialisable metadata stored under the
     manifest's ``"extra"`` key — e.g. the sort pipeline's per-run invariants
     (``pipeline.manifest.RunManifest``), readable without loading any array
-    via :func:`read_manifest`."""
+    via :func:`read_manifest`. A tree of ``DTensor``s is written by rank 0
+    as its global arrays; every rank must call it, and each returns once
+    the snapshot is in place."""
     names, leaves = _leaf_names(tree)
-    tmp = os.path.join(directory, f".tmp_{step}")
     final = os.path.join(directory, f"step_{step}")
+    sharded = _sharded(tree)
+    if sharded and torch.distributed.get_rank() != 0:
+        for leaf in leaves:
+            _host(leaf)             # this rank's part of the gathers
+        torch.distributed.barrier()     # rank 0 has written
+        return final
+    tmp = os.path.join(directory, f".tmp_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
@@ -179,6 +202,8 @@ def save(directory: str, step: int, tree: Any, extra: Any = None) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
+    if sharded:
+        torch.distributed.barrier()
     return final
 
 
@@ -208,13 +233,42 @@ def read_manifest(directory: str, step: int) -> dict:
         raise CorruptSnapshotError(path, f"unreadable manifest ({e})") from e
 
 
-def restore(directory: str, step: int, target: Any, device="cuda") -> Any:
+def _sharding_leaves(target, shardings) -> list:
+    """The leaves of ``shardings`` (``target``'s structure, a
+    ``NamedSharding`` where ``target`` has a leaf) in ``target``'s leaf
+    order."""
+    if target is None:
+        return []
+    if isinstance(target, dict):
+        return [s for k in sorted(target)
+                for s in _sharding_leaves(target[k], shardings[k])]
+    if isinstance(target, (list, tuple)):
+        return [s for t, sh in zip(target, shardings)
+                for s in _sharding_leaves(t, sh)]
+    return [shardings]
+
+
+def _placed(t: torch.Tensor, sharding) -> torch.Tensor:
+    """Global tensor ``t``, which every rank read from the same file, as a
+    ``DTensor`` on ``sharding``'s mesh: each rank keeps its own shard and
+    nothing crosses between them."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh = sharding.mesh
+    return distribute_tensor(t.to(mesh.device_type), mesh,
+                             sharding.placements, src_data_rank=None)
+
+
+def restore(directory: str, step: int, target: Any, device="cuda",
+            shardings: Any = None) -> Any:
     """Load a snapshot into the structure of ``target`` (a tree of tensors,
     numpy arrays or numbers giving each leaf's shape), every leaf a tensor
     on ``device`` with the dtype and bits it was saved with (the
     manifest's: a ``"bfloat16"`` leaf's 2-byte records become a bf16
-    tensor)."""
-    dev = resolve_device(device)
+    tensor). ``shardings`` (``target``'s structure, each leaf a
+    ``parallel.sharding.NamedSharding``) places every leaf on its mesh
+    instead, whatever mesh — or none — saved it; every rank calls it."""
+    dev = torch.device("cpu") if shardings is not None \
+        else resolve_device(device)
     path = os.path.join(directory, f"step_{step}")
     manifest = read_manifest(directory, step)
     by_name = {e["name"]: e for e in manifest["leaves"]}
@@ -240,6 +294,9 @@ def restore(directory: str, step: int, target: Any, device="cuda") -> Any:
                     leaf_path, f"{arr.dtype} records for a bfloat16 leaf")
             arr = arr.view(BF16_RECORD)
         out.append(to_device(arr, dev))
+    if shardings is not None:
+        out = [_placed(t, s) for t, s in
+               zip(out, _sharding_leaves(target, shardings))]
     return _unflatten(target, iter(out))
 
 
@@ -251,12 +308,18 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._meet = False          # a sharded save not yet met on
         os.makedirs(directory, exist_ok=True)
 
     def wait(self):
+        """Join the writer; after a sharded save, every rank returns once
+        rank 0's writer is done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._meet:
+            self._meet = False
+            torch.distributed.barrier()
 
     def _gc(self):
         for s in list_steps(self.directory)[: -self.keep]:
@@ -271,6 +334,10 @@ class CheckpointManager:
         _, leaves = _leaf_names(tree)
         host_tree = _unflatten(tree, iter([np.array(_host(l))
                                            for l in leaves]))
+        if _sharded(tree):
+            self._meet = True
+            if torch.distributed.get_rank() != 0:   # rank 0 writes it
+                return
 
         def work():
             save(self.directory, step, host_tree, extra=extra)
@@ -282,9 +349,15 @@ class CheckpointManager:
         else:
             work()
 
-    def restore_latest(self, target: Any, device="cuda"):
+    def restore_latest(self, target: Any, device="cuda",
+                       shardings: Any = None):
         self.wait()
         step = latest_step(self.directory)
+        if shardings is not None:       # every rank restores rank 0's step
+            box = [step]
+            torch.distributed.broadcast_object_list(box, src=0)
+            step = box[0]
         if step is None:
             return None, None
-        return step, restore(self.directory, step, target, device)
+        return step, restore(self.directory, step, target, device,
+                             shardings)

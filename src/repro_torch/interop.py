@@ -81,10 +81,13 @@ def to_device(x, device="cuda"):
 def to_numpy(x):
     """A torch tensor — or a tuple or list of them — as numpy arrays on the
     host, bits unchanged (``torch.uint32`` becomes ``numpy.uint32``,
-    ``torch.bfloat16`` 2-byte ``V2`` records)."""
+    ``torch.bfloat16`` 2-byte ``V2`` records); a ``DTensor`` as its global
+    array (every rank must call it: its shards are gathered)."""
     if isinstance(x, (tuple, list)):
         return type(x)(to_numpy(t) for t in x)
     x = x.detach()
+    if hasattr(x, "full_tensor"):             # a DTensor: its global array
+        x = x.full_tensor()
     if x.dtype == torch.uint32:
         return x.view(torch.int32).cpu().numpy().view(np.uint32)
     if x.dtype == torch.bfloat16:

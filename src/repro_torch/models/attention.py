@@ -27,10 +27,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..parallel.sharding import Rules, constrain
+from ..parallel.sharding import (Rules, constrain, constrain_core,
+                                 replicated_like)
 from .config import ModelConfig
 from .layers import Norm, apply_rope, rmsnorm
-from .param import Builder
+from .param import Builder, ParamModule
 
 __all__ = ["Attention", "MLA", "init_attention", "attention",
            "init_attn_cache"]
@@ -70,7 +71,12 @@ def _cache_write(cache_arr, new, cur_index):
     ``(B, s, ...)`` at ``cur_index``, in place. A scalar index is clamped
     into the cache (``dynamic_update_slice``'s rule); a per-row ``(B,)``
     index writes no row whose index is outside it (the reference's one-hot
-    select)."""
+    select). A sharded cache (a ``DTensor``) takes ``new`` in its own
+    placements, and each rank writes its own rows."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(cache_arr, DTensor):
+        _sharded_cache_write(cache_arr, new, cur_index)
+        return cache_arr
     new = new[:, 0].to(cache_arr.dtype)
     s = cache_arr.shape[1]
     cur = _as_index(cur_index, cache_arr.device)
@@ -83,6 +89,26 @@ def _cache_write(cache_arr, new, cur_index):
     keep = inside.reshape((-1,) + (1,) * (new.dim() - 1))
     cache_arr[rows, col] = torch.where(keep, new, cache_arr[rows, col])
     return cache_arr
+
+
+def _sharded_cache_write(cache_arr, new, cur_index):
+    """:func:`_cache_write` on each rank's shard of a ``DTensor`` cache:
+    ``new`` redistributed to the cache's placements (its dimensions are
+    the cache's but the length-1 position axis, which a cache is not split
+    on), a per-row index split over the batch as the cache is, and the
+    local tensors written in place."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = cache_arr.device_mesh, cache_arr.placements
+    if any(p == Shard(1) for p in pl):
+        raise ValueError("a decode cache split on its position axis is not "
+                         "supported")
+    new = new.to(cache_arr.dtype).redistribute(mesh, pl).to_local()
+    cur = _as_index(cur_index, new.device)
+    if cur.dim() == 1:
+        rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+        cur = replicated_like(cur, cache_arr).redistribute(mesh,
+                                                           rows).to_local()
+    _cache_write(cache_arr.to_local(), new, cur)
 
 
 # ---------------- GQA ----------------
@@ -119,7 +145,7 @@ def _gqa_chunked(q, keys, vals, scale, chunk, dt):
     return out.to(dt)
 
 
-class Attention(nn.Module):
+class Attention(ParamModule):
     """GQA weights: ``wq`` ``(d_model, heads, head_dim)``, ``wk``/``wv``
     ``(d_model, kv_heads, head_dim)``, ``wo`` ``(heads, head_dim,
     d_model)``."""
@@ -127,10 +153,10 @@ class Attention(nn.Module):
     def __init__(self, b: Builder, cfg: ModelConfig):
         super().__init__()
         dm, h, k, d = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = b.param((dm, h, d))
-        self.wk = b.param((dm, k, d))
-        self.wv = b.param((dm, k, d))
-        self.wo = b.param((h, d, dm))
+        self.wq = b.param((dm, h, d), ("embed", "heads", None))
+        self.wk = b.param((dm, k, d), ("embed", "kv_heads", None))
+        self.wv = b.param((dm, k, d), ("embed", "kv_heads", None))
+        self.wo = b.param((h, d, dm), ("heads", None, "embed"))
 
 
 def _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
@@ -160,7 +186,8 @@ def _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
         mask = _causal_mask(T, T, x.device)
         new_cache = {"k": k, "v": v} if return_cache else None
 
-    qg = q.reshape(B, T, kh, g, d)
+    qg, keys, vals = (constrain_core(t, rules)
+                      for t in (q.reshape(B, T, kh, g, d), keys, vals))
     s_len = keys.shape[1]
     chunk = cfg.attn_kv_chunk
     if (cache is None and chunk and T > 1 and s_len > chunk
@@ -173,13 +200,17 @@ def _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
         probs = _softmax_attend(scores, mask, dt)
         ctx = torch.einsum("bkgts,bskd->btkgd", probs, vals)
         ctx = ctx.reshape(B, T, h, d)
-    out = torch.einsum("bthd,hdm->btm", ctx, p.wo.to(dt))
+    # wo whole over its heads, as the core's heads are (the product flattens
+    # them with head_dim, which torch 2.11's DTensor cannot while they are
+    # split; the identity on one device)
+    wo = constrain(p.wo.to(dt), rules, None, None, "embed")
+    out = torch.einsum("bthd,hdm->btm", ctx, wo)
     return out, new_cache
 
 
 # ---------------- MLA ----------------
 
-class MLA(nn.Module):
+class MLA(ParamModule):
     """MLA weights: ``wkv_a`` ``(d_model, kv_lora + qk_rope)``, ``kv_norm``,
     ``wkv_b`` ``(kv_lora, heads, qk_nope + v_head)``, ``wo`` ``(heads,
     v_head, d_model)``, and the queries' ``wq_a`` ``(d_model, q_lora)``,
@@ -190,16 +221,20 @@ class MLA(nn.Module):
         super().__init__()
         m = cfg.mla
         dm, h = cfg.d_model, cfg.n_heads
-        self.wkv_a = b.param((dm, m.kv_lora + m.qk_rope))
+        self.wkv_a = b.param((dm, m.kv_lora + m.qk_rope),
+                             ("embed", "kv_lora"))
         self.kv_norm = Norm(b, m.kv_lora)
-        self.wkv_b = b.param((m.kv_lora, h, m.qk_nope + m.v_head))
-        self.wo = b.param((h, m.v_head, dm))
+        self.wkv_b = b.param((m.kv_lora, h, m.qk_nope + m.v_head),
+                             ("kv_lora", "heads", None))
+        self.wo = b.param((h, m.v_head, dm), ("heads", None, "embed"))
         if m.q_lora:
-            self.wq_a = b.param((dm, m.q_lora))
+            self.wq_a = b.param((dm, m.q_lora), ("embed", "q_lora"))
             self.q_norm = Norm(b, m.q_lora)
-            self.wq_b = b.param((m.q_lora, h, m.qk_nope + m.qk_rope))
+            self.wq_b = b.param((m.q_lora, h, m.qk_nope + m.qk_rope),
+                                 ("q_lora", "heads", None))
         else:
-            self.wq = b.param((dm, h, m.qk_nope + m.qk_rope))
+            self.wq = b.param((dm, h, m.qk_nope + m.qk_rope),
+                               ("embed", "heads", None))
 
 
 def _mla_queries(cfg, p, x, cos, sin):
@@ -235,7 +270,9 @@ def _mla(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
         kr_c = _cache_write(cache["kr"], kr, cur_index)
         mask = _decode_mask(ckv_c.shape[1], cur_index, 2, x.device)
         new_cache = {"ckv": ckv_c, "kr": kr_c}
-        ckv_all, kr_all = ckv_c.to(dt), kr_c.to(dt)
+        ckv_all, kr_all, qn, qr = (
+            constrain_core(t, rules)
+            for t in (ckv_c.to(dt), kr_c.to(dt), qn, qr))
         w_uk, w_uv = wkv_b[..., :m.qk_nope], wkv_b[..., m.qk_nope:]
         q_lat = torch.einsum("bthn,chn->bthc", qn, w_uk)
         scores = (torch.einsum("bthc,bsc->bhts", q_lat, ckv_all)
@@ -248,8 +285,10 @@ def _mla(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
         kv = torch.einsum("btc,chn->bthn", ckv, wkv_b)
         kn, v = kv[..., :m.qk_nope], kv[..., m.qk_nope:]
         mask = _causal_mask(T, T, x.device)
-        scores = (torch.einsum("bthn,bshn->bhts", qn, kn)
-                  + torch.einsum("bthr,bsr->bhts", qr, kr)) * scale
+        qn_c, qr_c, kn, v, kr_c = (constrain_core(t, rules)
+                                   for t in (qn, qr, kn, v, kr))
+        scores = (torch.einsum("bthn,bshn->bhts", qn_c, kn)
+                  + torch.einsum("bthr,bsr->bhts", qr_c, kr_c)) * scale
         probs = _softmax_attend(scores, mask, dt)
         ctx = torch.einsum("bhts,bshv->bthv", probs, v)
         new_cache = {"ckv": ckv, "kr": kr} if return_cache else None

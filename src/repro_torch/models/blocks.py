@@ -5,21 +5,20 @@ and the Mamba2 block (norm, mixer, residual)."""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..parallel.sharding import Rules, constrain
 from .attention import attention, init_attention
 from .config import ModelConfig
 from .layers import MLP, Norm, mlp, norm
 from .moe import MoE, moe
-from .param import Builder
+from .param import Builder, ParamModule
 from .ssm import Mamba, mamba_decode, mamba_train
 
 __all__ = ["TransformerBlock", "init_transformer_block", "transformer_block",
            "MambaBlock", "init_mamba_block", "mamba_block"]
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(ParamModule):
     """``ln1``, ``attn``, ``ln2`` and ``moe`` or ``mlp``. ``ffn``: 'dense'
     or 'moe'."""
 
@@ -53,10 +52,14 @@ def transformer_block(cfg: ModelConfig, p, x, cos, sin, rules: Rules,
         h2, aux = moe(cfg, p.moe, h2, rules, sort_impl)
     else:
         h2 = mlp(p.mlp, h2, cfg.mlp_act, cfg.mlp_gated, rules)
-    return x + h2, new_cache, aux
+    # the output placed as the residual stream too: under a mesh its
+    # gradient then comes back so placed, where DTensor may otherwise pick a
+    # split sequence that torch 2.11 cannot flatten (identity on one device)
+    return constrain(x + h2, rules, "batch", "res_seq", "act_embed"), \
+        new_cache, aux
 
 
-class MambaBlock(nn.Module):
+class MambaBlock(ParamModule):
     """``ln`` and the Mamba2 ``mixer``."""
 
     def __init__(self, b: Builder, cfg: ModelConfig):

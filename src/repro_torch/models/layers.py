@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.sharding import Rules, constrain
-from .param import Builder
+from .param import Builder, ParamModule
 
 __all__ = [
     "rmsnorm", "layernorm", "norm", "Norm", "init_norm",
@@ -24,14 +24,14 @@ __all__ = [
 
 # ---------------- norms ----------------
 
-class Norm(nn.Module):
+class Norm(ParamModule):
     """RMSNorm (``w``) or LayerNorm (``w``, ``b``) weights."""
 
     def __init__(self, b: Builder, d: int, kind: str = "rmsnorm"):
         super().__init__()
-        self.w = b.param((d,), init="ones")
+        self.w = b.param((d,), ("act_embed",), init="ones")
         if kind == "layernorm":
-            self.b = b.param((d,), init="zeros")
+            self.b = b.param((d,), ("act_embed",), init="zeros")
 
 
 init_norm = Norm
@@ -121,14 +121,15 @@ ACTS = {
 }
 
 
-class MLP(nn.Module):
+class MLP(ParamModule):
     """Dense MLP weights: ``w_in`` ``(d_model, 2*d_ff | d_ff)``, ``w_out``
     ``(d_ff, d_model)``."""
 
     def __init__(self, b: Builder, d_model: int, d_ff: int, gated: bool):
         super().__init__()
-        self.w_in = b.param((d_model, 2 * d_ff if gated else d_ff))
-        self.w_out = b.param((d_ff, d_model))
+        self.w_in = b.param((d_model, 2 * d_ff if gated else d_ff),
+                            ("embed", "mlp"))
+        self.w_out = b.param((d_ff, d_model), ("mlp", "embed"))
 
 
 init_mlp = MLP

@@ -36,6 +36,7 @@ place.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, Optional
 
@@ -46,13 +47,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..interop import resolve_device
-from ..parallel.sharding import Rules, constrain
+from ..parallel.compat import get_mesh, set_mesh
+from ..parallel.sharding import Rules, constrain, mesh_inputs
 from .attention import init_attn_cache
 from .blocks import (MambaBlock, TransformerBlock, mamba_block,
                      transformer_block)
 from .config import ModelConfig
 from .layers import Norm, mrope_angles, norm, rope_angles
-from .param import Builder
+from .param import Builder, ParamModule
 from .ssm import init_ssm_cache
 
 __all__ = [
@@ -90,7 +92,7 @@ def _plan(cfg: ModelConfig):
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
-class LM(nn.Module):
+class LM(ParamModule):
     """The weights of a language model: ``embed`` (token archs),
     one ``ModuleList`` of blocks a stack, the hybrid's ``shared`` block,
     ``final_norm`` and ``head`` (unless the embeddings are tied)."""
@@ -99,7 +101,7 @@ class LM(nn.Module):
         super().__init__()
         if cfg.input_kind == "tokens":
             self.embed = b.param((cfg.vocab_size, cfg.d_model),
-                                 scale=cfg.d_model ** -0.5)
+                                 ("vocab", "embed"), scale=cfg.d_model ** -0.5)
         for name, n, kind in _plan(cfg):
             if kind == "mamba":
                 blocks = [MambaBlock(b, cfg) for _ in range(n)]
@@ -116,7 +118,8 @@ class LM(nn.Module):
             self.shared = TransformerBlock(b, cfg, ffn="dense")
         self.final_norm = Norm(b, cfg.d_model, cfg.norm_kind)
         if not cfg.tie_embeddings:
-            self.head = b.param((cfg.d_model, cfg.vocab_size))
+            self.head = b.param((cfg.d_model, cfg.vocab_size),
+                                ("embed", "vocab"))
 
     @property
     def device(self) -> torch.device:
@@ -181,7 +184,11 @@ def _embed(cfg, params, batch, rules: Rules):
     if cfg.input_kind == "tokens":
         # F.embedding's backward sums each row's gradients in a fixed
         # order; indexing's (an accumulating index_put) promises none
-        x = F.embedding(_as(batch["tokens"], dev, torch.long), params.embed)
+        # the table whole along its vocab axis (identity on one device): a
+        # lookup in a vocab-sharded table gives a masked partial sum, whose
+        # redistribution DTensor cannot run backwards
+        table = constrain(params.embed, rules, None, "embed")
+        x = F.embedding(_as(batch["tokens"], dev, torch.long), table)
     else:
         x = _as(batch["frames"], dev)
     x = x.to(_dtype(cfg.compute_dtype))
@@ -206,20 +213,37 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _maybe_remat(fn, remat: str):
     """``fn`` (a block's forward) checkpointed by ``remat``; as it is where
-    autograd records nothing."""
+    autograd records nothing. The recompute runs under the mesh active now:
+    the backward pass of CUDA tensors runs on autograd's own thread, which
+    does not see the caller's ``set_mesh``."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {remat!r}")
     if remat == "none" or not torch.is_grad_enabled():
         return fn
-    kw = {}
-    if remat == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+    mesh = get_mesh()
+
+    def contexts():
+        if remat == "dots":
+            fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _recompute_context(rec, mesh)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _recompute_context(ctx, mesh):
+    """``ctx`` entered under ``set_mesh(mesh)``, or alone where ``mesh`` is
+    ``None``."""
+    with (set_mesh(mesh) if mesh is not None else contextlib.nullcontext()):
+        with ctx:
+            yield
 
 
 # ---------------- forward (train / prefill) ----------------
 
+@mesh_inputs()
 def forward(cfg: ModelConfig, params: LM, batch, rules: Rules,
             sort_impl: str = "xla", return_cache: bool = False,
             remat: Optional[str] = None):
@@ -297,13 +321,17 @@ def _hybrid_forward(cfg, params, x, cos, sin, rules, return_cache,
 
 # ---------------- loss ----------------
 
+@mesh_inputs()
 def lm_loss(cfg: ModelConfig, params: LM, batch, rules: Rules,
             sort_impl: str = "xla"):
     """Mean next-token cross entropy (labels < 0 masked) + MoE aux.
     Returns ``(loss, {"ce", "aux"})``."""
     logits, aux, _ = forward(cfg, params, batch, rules, sort_impl=sort_impl)
     labels = _as(batch["labels"], logits.device, torch.long)
-    lf = logits.float()
+    # each row's whole vocabulary for the label's gather: a gather along a
+    # vocab-sharded axis leaves a masked partial sum that DTensor cannot
+    # reduce (the identity on one device)
+    lf = constrain(logits.float(), rules, "batch", "seq", None)
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.take_along_dim(lf, labels.clamp(min=0)[..., None],
                               dim=-1)[..., 0]
@@ -314,6 +342,7 @@ def lm_loss(cfg: ModelConfig, params: LM, batch, rules: Rules,
 
 # ---------------- decode ----------------
 
+@mesh_inputs()
 def decode_step(cfg: ModelConfig, params: LM, cache, tokens_or_frames,
                 cur_index, rules: Rules, sort_impl: str = "xla"):
     """One-token decode against ``cache`` (written in place). ``cur_index``:

@@ -29,21 +29,29 @@ The dispatch's backward pass is deterministic too: every gather is by a
 permutation, or by slots that are unique but for the dropped rows' spare
 one, whose gradient is zero, so no gradient row sums in an order a card
 may change.
+
+Under a mesh (the parameters ``DTensor``s, ``parallel.compat.set_mesh``)
+the router and the whole token list are taken replicated as plain tensors
+in every rank (``sharding.whole``): the routing, the sort of the whole
+assignment list — the hand-written kernels read plain tensors — and the
+gathers by the permutation run the same in every rank and give the
+single-device permutation and drops. Only the experts' products run as
+``DTensor``s, their buffer placed by ``act_expert`` (expert parallelism on
+``model``); the output comes back replicated.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..core.bitonic import bitonic_sort_kv
 from ..core.oets import oets_sort_kv
 from ..kernels.ops import sort_kv as kernel_sort_kv
-from ..parallel.sharding import Rules, constrain
+from ..parallel.sharding import Rules, constrain, replicated_like, whole
 from .config import ModelConfig
 from .layers import ACTS, MLP, mlp
-from .param import Builder
+from .param import Builder, ParamModule
 
 __all__ = ["MoE", "init_moe", "moe", "capacity"]
 
@@ -54,7 +62,7 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-class MoE(nn.Module):
+class MoE(ParamModule):
     """Router ``(d_model, n_experts)``, experts ``w_in`` ``(E, d_model,
     2*d_expert | d_expert)`` and ``w_out`` ``(E, d_expert, d_model)``, and a
     shared-expert MLP where the config has one."""
@@ -64,9 +72,12 @@ class MoE(nn.Module):
         m = cfg.moe
         dm = cfg.d_model
         w_in_cols = 2 * m.d_expert if cfg.mlp_gated else m.d_expert
-        self.router = b.param((dm, m.n_experts), scale=dm ** -0.5)
-        self.w_in = b.param((m.n_experts, dm, w_in_cols))
-        self.w_out = b.param((m.n_experts, m.d_expert, dm))
+        self.router = b.param((dm, m.n_experts), ("embed", "expert"),
+                              scale=dm ** -0.5)
+        self.w_in = b.param((m.n_experts, dm, w_in_cols),
+                            ("expert", "embed", "expert_mlp"))
+        self.w_out = b.param((m.n_experts, m.d_expert, dm),
+                             ("expert", "expert_mlp", "embed"))
         if m.n_shared:
             self.shared = MLP(b, dm, m.n_shared * m.d_shared, cfg.mlp_gated)
 
@@ -91,11 +102,11 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(cfg, p, xf):
+def _route(cfg, router, xf):
     """Router logits (float32) -> (top-k probs, top-k expert ids, aux
     load-balance loss)."""
     m = cfg.moe
-    logits = xf.float() @ p.router.float()
+    logits = xf.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _top_k(probs, m.top_k)
     if m.router_renorm:
@@ -108,8 +119,12 @@ def _route(cfg, p, xf):
     return top_p, top_e, aux
 
 
-def _expert_ffn(cfg, p, buf):
-    """buf ``(E, C, d)`` -> ``(E, C, d)``, batched over experts."""
+def _expert_ffn(cfg, p, buf, rules):
+    """buf ``(E, C, d)`` -> ``(E, C, d)``, batched over experts. Under a
+    mesh the plain buffer is placed by ``act_expert`` beside the experts'
+    shards and the output taken whole again."""
+    buf = constrain(replicated_like(buf, p.w_in), rules, "act_expert", None,
+                    "act_embed")
     dt = buf.dtype
     h = torch.bmm(buf, p.w_in.to(dt))
     if cfg.mlp_gated:
@@ -117,7 +132,7 @@ def _expert_ffn(cfg, p, buf):
         h = u * ACTS[cfg.mlp_act](g)
     else:
         h = ACTS[cfg.mlp_act](h)
-    return torch.bmm(h, p.w_out.to(dt))
+    return whole(torch.bmm(h, p.w_out.to(dt)))
 
 
 def _sort_assignments(flat_e, flat_payload, impl: str):
@@ -134,14 +149,54 @@ def _sort_assignments(flat_e, flat_payload, impl: str):
     raise ValueError(f"unknown sort impl {impl!r}")
 
 
-def _dispatch_sort(cfg, p, xf, rules, sort_impl):
+def _pack(xf, top_k: int, sorted_e, perm, n_experts: int, cap: int):
+    """The assignments in the sorted order ``(sorted_e, perm)`` (expert ids
+    and token-major indices, ``int64``) packed into ``n_experts`` capacity
+    buckets of ``cap`` rows: each one's rank within its expert, those past
+    ``cap`` dropped. Returns ``(buffer (n_experts * cap, d), slot)``,
+    ``slot`` each sorted assignment's row (``n_experts * cap`` if
+    dropped)."""
+    t, dm = xf.shape
+    n = t * top_k
+    counts = _counts(sorted_e, n_experts)
+    offsets = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=xf.device) - offsets[sorted_e]
+    slot = torch.where(rank < cap, sorted_e * cap + rank, n_experts * cap)
+    # each assignment's row, gathered by the permutation from a token-major
+    # copy: the reference's xf[sorted_t]. Its transpose (:func:`_combine`)
+    # is then a scatter by a permutation (one row each) and a sum over
+    # top_k in a fixed order; xf[sorted_t]'s would sum each token's top_k
+    # rows in no fixed order.
+    rows = xf[:, None, :].expand(t, top_k, dm).reshape(n, dm)[perm]
+    buf = xf.new_zeros((n_experts * cap + 1, dm))
+    buf[slot] = rows                    # dropped ones share the spare row
+    return buf[: n_experts * cap], slot
+
+
+def _combine(out, slot, perm, gates, top_k: int):
+    """The experts' outputs ``out`` ``(n_experts * cap, d)`` back to the
+    tokens: each sorted assignment's row (zeros where dropped) at its
+    token-major place — ``perm`` is a permutation, so every row is written
+    once — gated, and each token's ``top_k`` summed in a fixed order. The
+    reference scatter-adds in sorted order (``.at[sorted_t].add``); on a
+    card that is atomics, whose order — and so the low bits of every later
+    layer and its routing — would change from run to run."""
+    dm = out.shape[1]
+    contrib = torch.cat([out, out.new_zeros((1, dm))])[slot]
+    back = torch.empty_like(contrib)
+    back[perm] = contrib
+    return (back * gates[:, None].to(out.dtype)).reshape(
+        -1, top_k, dm).sum(1)
+
+
+def _dispatch_sort(cfg, p, router, xf, rules, sort_impl):
     """The paper's dispatch: bucket the assignments by expert with a
     key-value sort, rank each within its bucket, drop past capacity."""
     m = cfg.moe
     t, dm = xf.shape
     dev = xf.device
     cap = capacity(cfg, t)
-    top_p, top_e, aux = _route(cfg, p, xf)
+    top_p, top_e, aux = _route(cfg, router, xf)
 
     n = t * m.top_k
     flat_e = top_e.reshape(n).to(torch.int32)
@@ -150,45 +205,19 @@ def _dispatch_sort(cfg, p, xf, rules, sort_impl):
     iota = torch.arange(n, dtype=torch.int32, device=dev)
     sorted_e, perm = _sort_assignments(flat_e, iota, sort_impl)
     sorted_e, perm = sorted_e.long(), perm.long()
-    counts = _counts(flat_e, m.n_experts)
-    offsets = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(n, device=dev) - offsets[sorted_e]
-    keep = rank < cap
-    slot = torch.where(keep, sorted_e * cap + rank, m.n_experts * cap)
-
-    # each assignment's row, gathered by the permutation from a token-major
-    # copy: the reference's xf[sorted_t]. Its transpose is then a scatter by
-    # a permutation (one row each) and a sum over top_k in a fixed order;
-    # xf[sorted_t]'s would sum each token's top_k rows in no fixed order.
-    rows = xf[:, None, :].expand(t, m.top_k, dm).reshape(n, dm)[perm]
-    buf = xf.new_zeros((m.n_experts * cap + 1, dm))
-    buf[slot] = rows                    # dropped ones share the spare row
-    buf = buf[: m.n_experts * cap].reshape(m.n_experts, cap, dm)
-    buf = constrain(buf, rules, "act_expert", None, "act_embed")
-
-    out = _expert_ffn(cfg, p, buf)
-    out_flat = torch.cat([out.reshape(m.n_experts * cap, dm),
-                          out.new_zeros((1, dm))])
-    contrib = out_flat[slot]            # dropped assignments read zeros
-
-    # the combine: each assignment's output back at its token-major place
-    # (``perm`` is a permutation, so every row is written once), gated, and
-    # each token's top_k summed in a fixed order. The reference scatter-adds
-    # in sorted order (``.at[sorted_t].add``); on a card that is atomics,
-    # whose order — and so the low bits of every later layer and its
-    # routing — would change from run to run.
-    back = torch.empty_like(contrib)
-    back[perm] = contrib
-    y = (back * flat_p[:, None].to(xf.dtype)).reshape(t, m.top_k, dm).sum(1)
+    buf, slot = _pack(xf, m.top_k, sorted_e, perm, m.n_experts, cap)
+    out = _expert_ffn(cfg, p, buf.reshape(m.n_experts, cap, dm), rules)
+    y = _combine(out.reshape(m.n_experts * cap, dm), slot, perm, flat_p,
+                 m.top_k)
     return y, aux
 
 
-def _dispatch_einsum(cfg, p, xf, rules):
+def _dispatch_einsum(cfg, p, router, xf, rules):
     """One-hot dispatch baseline (no sort)."""
     m = cfg.moe
     t, dm = xf.shape
     cap = capacity(cfg, t)
-    top_p, top_e, aux = _route(cfg, p, xf)
+    top_p, top_e, aux = _route(cfg, router, xf)
 
     # position of each assignment within its expert bucket
     onehot = F.one_hot(top_e, m.n_experts).to(torch.int32)      # (t,k,E)
@@ -202,8 +231,7 @@ def _dispatch_einsum(cfg, p, xf, rules):
         * within_cap[..., None].to(xf.dtype)                      # (t,k,E,C)
 
     buf = torch.einsum("td,tkec->ecd", xf, disp)
-    buf = constrain(buf, rules, "act_expert", None, "act_embed")
-    out = _expert_ffn(cfg, p, buf)
+    out = _expert_ffn(cfg, p, buf, rules)
     y = torch.einsum("tkec,ecd->td", (combine[..., None] * disp).to(xf.dtype),
                      out)
     return y, aux
@@ -214,12 +242,22 @@ def moe(cfg: ModelConfig, p, x, rules: Rules, sort_impl: str = "xla"):
     m = cfg.moe
     b, t, dm = x.shape
     xf = x.reshape(b * t, dm)
+    # the dispatch's index arithmetic, its sort kernels and its gathers by
+    # the permutation take plain tensors: the whole token list and router
+    # in every rank under a mesh (the module's docstring)
+    router, xw = whole(p.router), whole(xf)
     if m.impl == "sort":
-        y, aux = _dispatch_sort(cfg, p, xf, rules, sort_impl)
+        y, aux = _dispatch_sort(cfg, p, router, xw, rules, sort_impl)
     elif m.impl == "einsum":
-        y, aux = _dispatch_einsum(cfg, p, xf, rules)
+        y, aux = _dispatch_einsum(cfg, p, router, xw, rules)
     else:
         raise ValueError(f"unknown moe impl {m.impl!r}")
+    # shaped as x while plain, then placed as the residual stream under a
+    # mesh (a view of the replicated output would be flattened again in the
+    # backward pass beside a split axis, which torch 2.11's DTensor cannot)
+    y = constrain(replicated_like(y.reshape(b, t, dm), xf), rules, "batch",
+                  "res_seq", "act_embed")
+    aux = replicated_like(aux, xf)
     if m.n_shared:
-        y = y + mlp(p.shared, xf, cfg.mlp_act, cfg.mlp_gated, rules)
-    return y.reshape(b, t, dm), aux
+        y = y + mlp(p.shared, x, cfg.mlp_act, cfg.mlp_gated, rules)
+    return y, aux

@@ -27,9 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.sharding import Rules, constrain
+from ..parallel.sharding import Rules, constrain, constrain_core
 from .config import ModelConfig
-from .param import Builder
+from .param import Builder, ParamModule
 
 __all__ = ["Mamba", "init_mamba", "mamba_train", "mamba_decode",
            "init_ssm_cache", "ssd_reference"]
@@ -43,7 +43,7 @@ def _dims(cfg: ModelConfig):
     return d_inner, nheads, conv_dim
 
 
-class Mamba(nn.Module):
+class Mamba(ParamModule):
     """Mamba2 mixer weights: ``w_in`` ``(d_model, 2*d_inner + 2*G*N + H)``
     (the order ``[z (gate), xBC (conv'd), dt]``), ``conv_w`` ``(d_conv,
     conv_dim)``, ``conv_b``, ``A_log``, ``D``, ``dt_bias`` ``(H,)``,
@@ -55,14 +55,15 @@ class Mamba(nn.Module):
         d_inner, nheads, conv_dim = _dims(cfg)
         dm = cfg.d_model
         self.w_in = b.param((dm, 2 * d_inner + 2 * s.n_groups * s.d_state
-                             + nheads))
-        self.conv_w = b.param((s.d_conv, conv_dim), scale=s.d_conv ** -0.5)
-        self.conv_b = b.param((conv_dim,), init="zeros")
-        self.A_log = b.param((nheads,), init="ssm_a")
-        self.D = b.param((nheads,), init="ones")
-        self.dt_bias = b.param((nheads,), init="zeros")
-        self.norm_w = b.param((d_inner,), init="ones")
-        self.w_out = b.param((d_inner, dm))
+                             + nheads), ("embed", "mlp"))
+        self.conv_w = b.param((s.d_conv, conv_dim), ("conv", "mlp"),
+                              scale=s.d_conv ** -0.5)
+        self.conv_b = b.param((conv_dim,), ("mlp",), init="zeros")
+        self.A_log = b.param((nheads,), ("state",), init="ssm_a")
+        self.D = b.param((nheads,), ("state",), init="ones")
+        self.dt_bias = b.param((nheads,), ("state",), init="zeros")
+        self.norm_w = b.param((d_inner,), ("mlp",), init="ones")
+        self.w_out = b.param((d_inner, dm), ("mlp", "embed"))
 
 
 init_mamba = Mamba
@@ -95,11 +96,23 @@ def _gated_norm(p, y, z, eps):
     return (yf * p.norm_w.float()).to(dt)
 
 
+def _pad_time(x, before: int = 0, after: int = 0):
+    """``x`` with ``before`` and ``after`` zero rows on its time axis (dim
+    1): ``F.pad``'s values, by a concatenation, since torch 2.11's DTensor
+    cannot pad a sharded tensor (an ``IndexError`` in the redistribution
+    it plans)."""
+    def zeros(n):
+        return torch.zeros(x.shape[:1] + (n,) + x.shape[2:], dtype=x.dtype,
+                           device=x.device)
+    return torch.cat(([zeros(before)] if before else []) + [x]
+                     + ([zeros(after)] if after else []), dim=1)
+
+
 def _causal_conv_train(p, xbc):
     """Depthwise causal conv over time. xbc ``(B, T, C)``; conv_w ``(K,
     C)``: K shifted multiply-adds, in the reference's order."""
     k, t = p.conv_w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = _pad_time(xbc, before=k - 1)
     out = torch.zeros_like(xbc)
     for i in range(k):
         out = out + pad[:, i:i + t, :] * p.conv_w[i]
@@ -213,13 +226,12 @@ def mamba_train(cfg: ModelConfig, p, x, rules: Rules,
 
     pad = (-t) % s.chunk
     if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        bg = F.pad(bg, (0, 0, 0, 0, 0, pad))
-        cg = F.pad(cg, (0, 0, 0, 0, 0, pad))
-        dt_pos = F.pad(dt_pos, (0, 0, 0, pad))
+        xh, bg, cg, dt_pos = (_pad_time(t, after=pad)
+                              for t in (xh, bg, cg, dt_pos))
 
-    y, final_state = _ssd_chunked(xh.float(), dt_pos, a, bg.float(),
-                                  cg.float(), s.chunk)
+    y, final_state = _ssd_chunked(
+        *(constrain_core(t, rules) for t in (xh.float(), dt_pos)), a,
+        *(constrain_core(t.float(), rules) for t in (bg, cg)), s.chunk)
     y = y[:, :t].to(dt_x) \
         + xh[:, :t].to(dt_x) * p.D.to(dt_x)[None, None, :, None]
     y = _gated_norm(p, y.reshape(bsz, t, d_inner), z, cfg.norm_eps)
@@ -237,7 +249,7 @@ def mamba_train(cfg: ModelConfig, p, x, rules: Rules,
         elif t >= k - 1:
             tail = xbc_raw[:, t - (k - 1):]
         else:
-            tail = F.pad(xbc_raw, (0, 0, k - 1 - t, 0))
+            tail = _pad_time(xbc_raw, before=k - 1 - t)
         cache = {"conv": tail.to(dt_x), "ssm": final_state.float()}
     return out, cache
 
@@ -270,8 +282,10 @@ def mamba_decode(cfg: ModelConfig, p, x, cache, rules: Rules):
     dt_pos = _softplus(dt_raw[:, 0].float() + p.dt_bias.float())
     dec = torch.exp(dt_pos * -torch.exp(p.A_log.float()))      # (B, H)
     state = cache["ssm"] * dec[:, :, None, None] + torch.einsum(
-        "bhn,bhp->bhpn", b_heads, xh.float() * dt_pos[..., None])
-    y = torch.einsum("bhn,bhpn->bhp", c_heads, state).to(dt_x)
+        "bhn,bhp->bhpn", *(constrain_core(t, rules) for t in (
+            b_heads, xh.float() * dt_pos[..., None])))
+    y = torch.einsum("bhn,bhpn->bhp", *(constrain_core(t, rules) for t in (
+        c_heads, state))).to(dt_x)
     y = y + xh * p.D.to(dt_x)[None, :, None]
     y = _gated_norm(p, y.reshape(bsz, 1, d_inner), z, cfg.norm_eps)
     out = y @ p.w_out.to(dt_x)

@@ -37,12 +37,15 @@ def _named(params) -> dict:
 
 def init_opt_state(params, moment_dtype=torch.float32) -> dict:
     """Zero moments like each parameter of ``params`` (an ``nn.Module`` or
-    a dict of tensors), in ``moment_dtype``, and ``count`` 0."""
+    a dict of tensors), in ``moment_dtype`` and placed as the parameter
+    where it is a ``DTensor``, and ``count`` 0 (a plain tensor)."""
     named = _named(params)
     device = next(iter(named.values())).device
 
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        # torch.zeros_like keeps a DTensor parameter's mesh and placements
+        return {k: torch.zeros_like(p, dtype=moment_dtype,
+                                    requires_grad=False)
                 for k, p in named.items()}
     return {"m": zeros(), "v": zeros(),
             "count": torch.zeros((), dtype=torch.int32, device=device)}

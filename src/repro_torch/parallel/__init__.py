@@ -1,13 +1,15 @@
-"""Distribution substrate of the port: the mesh collectives the sort
-engines use, over ``torch.distributed`` (``compat``), and the model stack's
-logical-axis sharding table (``sharding``; on one device ``constrain`` is
-the identity). The reference's remat policies, compression, ring and
-pipeline parallelism, and the ``PartitionSpec`` rendering of the table,
-wait for the parallel item of ROADMAP A13."""
+"""Distribution substrate of the port: the mesh collectives over
+``torch.distributed`` and the active mesh (``compat``), the logical-axis
+sharding plan rendered as DTensor placements (``sharding``), the ring
+collectives (``ring``), GPipe pipelining (``pipeline``) and int8 gradient
+compression with error feedback (``compression``)."""
 
-from .compat import (all_gather, all_to_all, axis_index, axis_size,
-                     make_mesh, ppermute)
-from .sharding import DEFAULT_RULES, Rules, constrain
+from .compat import (all_gather, all_to_all, axis_index, axis_size, get_mesh,
+                     make_mesh, pmax, ppermute, psum, set_mesh)
+from .sharding import (DEFAULT_RULES, NamedSharding, Rules, constrain,
+                       placements, spec_for)
 
 __all__ = ["axis_size", "axis_index", "ppermute", "all_gather", "all_to_all",
-           "make_mesh", "Rules", "DEFAULT_RULES", "constrain"]
+           "psum", "pmax", "make_mesh", "set_mesh", "get_mesh", "Rules",
+           "DEFAULT_RULES", "NamedSharding", "constrain", "placements",
+           "spec_for"]

@@ -1,6 +1,7 @@
 """The mesh collectives of the port over ``torch.distributed`` — the
 counterpart of ``repro.parallel.compat``'s ``shard_map`` helpers
-(``axis_size``) and ``make_mesh``.
+(``axis_size``), ``make_mesh`` and the active mesh (``set_mesh``,
+``get_abstract_mesh``: here :func:`set_mesh` and :func:`get_mesh`).
 
 The reference's engines run inside ``shard_map`` and talk through
 ``lax.axis_index``, ``lax.ppermute``, ``lax.all_gather`` and
@@ -15,7 +16,9 @@ collective steps the engines take:
     to ``(me + shift) % P`` and receives from ``(me - shift) % P``;
   * :func:`all_gather` — every rank's tensor stacked on a new leading axis;
   * :func:`all_to_all` — block ``d`` of the leading axis to rank ``d``,
-    block ``s`` of the result from rank ``s`` (``all_to_all_single``).
+    block ``s`` of the result from rank ``s`` (``all_to_all_single``);
+  * :func:`psum` / :func:`pmax` — the sum and the maximum over the ranks
+    (``all_reduce``), the one step that adds values and so keeps the dtype.
 
 Every tensor crosses as its raw bytes (a ``uint8`` view of its last axis),
 so any dtype travels — ``torch.uint32`` and the narrow lanes included, which
@@ -26,17 +29,30 @@ tensors only, so a CUDA operand is copied to the host, sent, and the result
 copied back to its device (on one card, several ranks share ``cuda:0`` this
 way; NCCL refuses two ranks on one GPU); ``nccl`` takes the CUDA tensors as
 they are.
+
+A ``DTensor``'s redistributions call c10d's functional collectives on the
+local tensors. gloo runs them on CUDA operands itself, copying through the
+host, but one: its ``allgather_into_tensor_coalesced``, behind
+``all_gather_into_tensor``, crashes the process on CUDA tensors (torch
+2.11, a segmentation fault). So :func:`make_mesh` of a CUDA mesh over a
+gloo group gives that op's CUDA kernel a route of its own
+(:func:`_all_gather_route`): the group's backend decides, as above — a host
+copy and gloo's plain all-gather where it is gloo, the device tensors
+where it is not.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["axis_size", "axis_index", "ppermute", "all_gather", "all_to_all",
-           "make_mesh"]
+           "psum", "pmax", "make_mesh", "set_mesh", "get_mesh"]
 
 
 def axis_size(group=None) -> int:
@@ -115,11 +131,88 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     return _unwire(recv, x, x.shape)
 
 
+def _reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    """``x`` reduced by ``op`` over the ranks of ``group``, on ``x``'s
+    device: a host copy where the backend is gloo, as :func:`_wire`
+    decides. Unlike the byte-moving steps above this one adds values, so
+    ``x`` crosses in its own dtype."""
+    buf = x.detach().clone()
+    if _on_host(group):
+        buf = buf.cpu()
+    dist.all_reduce(buf, op=op, group=group)
+    return buf.to(x.device)
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.psum(x, axis)``: the sum of every rank's ``x``."""
+    return _reduce(x, group, dist.ReduceOp.SUM)
+
+
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.pmax(x, axis)``: the elementwise maximum over the ranks."""
+    return _reduce(x, group, dist.ReduceOp.MAX)
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) the active mesh for the block, as
+    ``jax.set_mesh`` does: ``sharding.constrain`` places activations on it
+    and the model's entry points take plain tensors beside its
+    ``DTensor``s as replicated. It is a context variable: another thread
+    (autograd's, in a CUDA backward pass) does not see it, so a
+    checkpointed block's recompute enters it again (``models.model``)."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def get_mesh():
+    """The active mesh of :func:`set_mesh`, or ``None`` outside one (the
+    reference's empty abstract mesh)."""
+    return _MESH.get()
+
+
+def _all_gather_into_tensor(x: torch.Tensor, group_size: int,
+                            group_name: str) -> torch.Tensor:
+    """``_c10d_functional.all_gather_into_tensor`` for CUDA operands: every
+    rank's ``x`` concatenated on dim 0, through the host where the group's
+    backend is gloo. Synchronous, so the functional op's ``wait_tensor``
+    finds no work left."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    group = _resolve_process_group(group_name)
+    src = x.contiguous()
+    if _on_host(group):
+        src = src.cpu()
+    out = src.new_empty((group_size * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.to(x.device)
+
+
+@functools.cache
+def _all_gather_route():
+    """Register :func:`_all_gather_into_tensor` as the CUDA kernel of
+    ``_c10d_functional.all_gather_into_tensor`` in this process, once;
+    the ``Library`` returned (and cached) keeps it registered."""
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", _all_gather_into_tensor, "CUDA")
+    return lib
+
+
 def make_mesh(shape: Sequence[int], names: Sequence[str],
               device_type: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` with dimension ``names`` over the ranks
     of the default process group (``init_device_mesh``; the group is set up
-    first if it is not). The engines take ``mesh.get_group(name)``."""
+    first if it is not). The engines take ``mesh.get_group(name)``. A CUDA
+    mesh over gloo routes the functional all-gather through the host (the
+    module's docstring)."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, tuple(shape),
+    mesh = init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(names))
+    if device_type == "cuda" and _on_host(None):
+        _all_gather_route()
+    return mesh

@@ -13,6 +13,13 @@ reference's ``lax.scan`` splits it: their gradients are added into float32
 buffers in order and divided by ``accum``, their losses likewise, and
 ``aux`` is reported as zero — AdamW then gets float32 gradients, where with
 ``accum == 1`` it gets each parameter's own dtype, as in the reference.
+
+Under a mesh (``parallel.compat.set_mesh``, the LM's parameters
+``DTensor``s from ``models.param.shard_lm``) the same step runs sharded:
+the backward pass and the update take plain tensors beside the
+``DTensor``s as replicated (``sharding.mesh_inputs``), each gradient is
+placed as its parameter is, the clip's norm sums every shard, and the
+moments (``optim.init_opt_state``) are placed as their parameters.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from ..models.config import ModelConfig
 from ..models.model import lm_loss
 from ..optim import (AdamWConfig, adamw_update, clip_by_global_norm,
                      cosine_schedule)
-from ..parallel.sharding import Rules
+from ..parallel.sharding import Rules, mesh_inputs
 
 __all__ = ["Hyper", "make_train_step", "make_eval_step"]
 
@@ -54,16 +61,27 @@ def _split_microbatches(batch, accum: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
 
 
+def _placed_as(grad, param):
+    """``grad`` in ``param``'s placements where ``param`` is a ``DTensor``
+    (a gradient may come back as a partial sum or split otherwise)."""
+    mesh = getattr(param, "device_mesh", None)
+    if mesh is None:
+        return grad
+    return grad.redistribute(mesh, param.placements)
+
+
 def make_train_step(cfg: ModelConfig, rules: Rules, hyper: Hyper):
     schedule = cosine_schedule(hyper.lr, hyper.warmup, hyper.total_steps)
 
     def grads_of(lm, mb):
         names, params = zip(*lm.named_parameters())
         loss, metrics = lm_loss(cfg, lm, mb, rules, sort_impl=hyper.sort_impl)
-        grads = torch.autograd.grad(loss, params)
+        grads = [_placed_as(g, p)
+                 for g, p in zip(torch.autograd.grad(loss, params), params)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 dict(zip(names, grads)))
 
+    @mesh_inputs()
     def train_step(lm, opt_state, batch, step):
         if hyper.accum == 1:
             loss, metrics, grads = grads_of(lm, batch)
@@ -72,11 +90,9 @@ def make_train_step(cfg: ModelConfig, rules: Rules, hyper: Hyper):
             for mb in _split_microbatches(batch, hyper.accum):
                 l, _, g = grads_of(lm, mb)
                 if grads is None:
-                    grads = {k: torch.zeros(v.shape, dtype=torch.float32,
-                                            device=v.device)
+                    grads = {k: torch.zeros_like(v, dtype=torch.float32)
                              for k, v in g.items()}
-                    loss = torch.zeros((), dtype=torch.float32,
-                                       device=l.device)
+                    loss = torch.zeros_like(l, dtype=torch.float32)
                 torch._foreach_add_(list(grads.values()),
                                     [g[k] for k in grads])
                 loss = loss + l

@@ -968,3 +968,110 @@ def test_bfloat16_snapshot_round_trips_on_the_card(cuda, tmp_path):
         assert torch.equal(moments[name], opt["m"][name])
     dtypes = {e["dtype"] for e in read_manifest(str(tmp_path), 5)["leaves"]}
     assert dtypes == {"bfloat16", "float32", "int32"}
+
+
+# ---------------- the parallel plan: 2 gloo ranks of one card ----------------
+
+_PLAN_RANK = r"""
+import copy, dataclasses, types
+import numpy as np
+from repro_torch.configs import get_smoke_config
+from repro_torch.interop import to_numpy
+from repro_torch.models import forward, init_lm
+from repro_torch.models.moe import moe
+from repro_torch.models.moe_ep import ep_moe
+from repro_torch.models.param import shard_lm
+from repro_torch.optim import init_opt_state
+from repro_torch.parallel.compat import make_mesh, set_mesh
+from repro_torch.parallel.sharding import Rules
+from repro_torch.training import Hyper, make_train_step
+
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+rules, out = Rules(), {}
+mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+cfg = get_smoke_config("granite-moe-1b-a400m")
+lm = init_lm(cfg, seed=0, device=dev)
+rng = np.random.default_rng(1)
+tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32))).to(dev)
+labels = torch.roll(tokens, -1, 1)
+with torch.no_grad():
+    out["fwd/single"] = to_numpy(forward(cfg, lm, {"tokens": tokens}, rules,
+                                         sort_impl="pallas")[0])
+    lm_s = shard_lm(copy.deepcopy(lm), rules, mesh)
+    with set_mesh(mesh):
+        out["fwd/sharded"] = to_numpy(forward(
+            cfg, lm_s, {"tokens": tokens}, rules, sort_impl="pallas")[0])
+for k, v in lm.named_parameters():
+    out[f"train/init/{k}"] = to_numpy(v)
+for key, sharded in (("single", False), ("sharded", True)):
+    l = copy.deepcopy(lm)
+    if sharded:
+        shard_lm(l, rules, mesh)
+    step = make_train_step(cfg, rules, Hyper(lr=1e-3, warmup=1,
+                                             total_steps=5,
+                                             sort_impl="pallas"))
+    opt = init_opt_state(l)
+    if sharded:
+        with set_mesh(mesh):
+            l, opt, m = step(l, opt, {"tokens": tokens, "labels": labels}, 1)
+    else:
+        l, opt, m = step(l, opt, {"tokens": tokens, "labels": labels}, 1)
+    for name in ("loss", "grad_norm", "lr"):
+        out[f"train/{key}/{name}"] = to_numpy(m[name])
+    for k, v in l.named_parameters():
+        out[f"train/{key}/param/{k}"] = to_numpy(v)
+        for mom in ("m", "v"):
+            out[f"train/{key}/{mom}/{k}"] = to_numpy(opt[mom][k])
+ep = make_mesh((2,), ("ep",), "cuda")
+ecfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+g = torch.Generator(device=dev).manual_seed(3)
+m_ = ecfg.moe
+x = torch.randn(128, ecfg.d_model, generator=g, device=dev)
+p = types.SimpleNamespace(
+    router=torch.randn(ecfg.d_model, m_.n_experts, generator=g, device=dev),
+    w_in=torch.randn(m_.n_experts, ecfg.d_model, 2 * m_.d_expert,
+                     generator=g, device=dev) * 0.1,
+    w_out=torch.randn(m_.n_experts, m_.d_expert, ecfg.d_model, generator=g,
+                      device=dev) * 0.1)
+y, _ = ep_moe(ecfg, ep, "ep", x, p.router, p.w_in, p.w_out)
+out["ep/y"] = to_numpy(y)
+with torch.no_grad():
+    out["ep/moe"] = to_numpy(moe(ecfg, p, x[None], rules)[0][0])
+if rank == 0:
+    np.savez(workdir + "/plan.npz", **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def plan_run(tmp_path_factory):
+    """The arrays of :data:`_PLAN_RANK` run by 2 gloo ranks on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from _torch_mesh import launch_ranks
+    work = tmp_path_factory.mktemp("plan_gpu")
+    launch_ranks(_PLAN_RANK, 2, work, timeout=300)
+    return np.load(work / "plan.npz")
+
+
+def test_sharded_smoke_forward_on_the_card(cuda, plan_run):
+    np.testing.assert_allclose(plan_run["fwd/sharded"], plan_run["fwd/single"],
+                               rtol=0, atol=2e-3)
+
+
+def test_sharded_smoke_train_step_on_the_card(cuda, plan_run):
+    """The step sharded against unsharded: the loss, the gradient norm,
+    each parameter's change and the moments (``_torch_plan``'s bounds)."""
+    from _torch_plan import assert_step_matches
+
+    def part(key):
+        pre = f"train/{key}/"
+        return {k[len(pre):]: plan_run[k] for k in plan_run.files
+                if k.startswith(pre)}
+    assert_step_matches(part("init"), part("single"), part("sharded"))
+
+
+def test_ep_moe_on_the_card_matches_moe(cuda, plan_run):
+    np.testing.assert_allclose(plan_run["ep/y"], plan_run["ep/moe"], rtol=0,
+                               atol=2e-4)
