@@ -138,7 +138,20 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      configs' prefill and decode sharded against unsharded; and
      ``ring_all_reduce``, ``ring_all_gather``, ``pipeline_forward``,
      ``compressed_psum`` and ``ep_moe`` at Granite's width on CUDA tensors
-     against their one-process counterparts.
+     against their one-process counterparts; and the sharded Granite served
+     through ``Engine.generate`` (8 prompts, 4 new tokens, 'pallas': C8,
+     the engine under ``no_grad`` for a sharded LM), its greedy tokens
+     counted against the unsharded engine's;
+ 10. launch — the launchers and the conformance kit (``phase_launch``):
+     ``launch.hw.device_properties()`` beside ``nvidia-smi`` (an H100, its
+     memory within 10% of the data sheet's 80 GB); the conformance matrix
+     of ``repro_torch.testing`` in ``torch-cpu``, ``cuda-kernel`` and
+     ``cuda-graph`` (every cell conforming, B1-B6 each launched); and
+     ``launch.dryrun.run_cell`` of Granite at full width on fake (1, 1)
+     and (2, 2) groups at phase 8's train cell (8 x 512) and phase 6's
+     prefill (8 x 512): FLOPs, bytes, collectives and memory a rank, the
+     (2, 2) parameters held to phase 9's 742,891,520 B, the predicted train
+     peak printed beside phase 8's measured one.
 
 Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
 so the host's time per call counts where it is longer) and ``device_ms``
@@ -314,6 +327,24 @@ PLAN_SMOKE_ATOL = 2e-3                # the CPU tests' (float32)
 PLAN_EP_TOKENS = 4 * 512              # a rank's tokens
 PLAN_EP_CAPACITY = 4.0                # 2,048 slots an expert: none drops
 PLAN_TIMEOUT = 420
+# phase 9's serving through Engine.generate on the sharded LM (C8)
+PLAN_GEN_PROMPTS = (5, 17, 9, 30, 12, 3, 24, 8)
+PLAN_GEN_NEW = 4
+PLAN_GEN_MAX_SEQ = 64
+
+# phase 10: the launch layer and the conformance kit — the card's own
+# properties against hw's data sheet (memory within HW_MEMORY_RTOL), the
+# conformance matrix in every mode (B1-B6 launched), and the dry run of
+# Granite at full width on fake (1, 1) and (2, 2) meshes at phase 8's train
+# cell and phase 6's prefill cell; phase 9 measured 742,891,520 B of
+# parameters a rank of the (2, 2) mesh on the card
+HW_MEMORY_RTOL = 0.1
+CONFORMANCE_KERNELS = ("oets_rows_lex", "bitonic_rows_lex", "distribute_rows",
+                       "merge_adjacent_lex", "merge_runs_lex",
+                       "merge_runs_kway")
+DRYRUN_ARCH = "granite-moe-1b-a400m"
+DRYRUN_MESHES = ((1, 1), (2, 2))
+DRYRUN_PARAM_BYTES = {(2, 2): 742_891_520}
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -430,6 +461,8 @@ class Report:
             "source": f"src/repro_torch/kernels/csrc/{k.source}",
             "replaces": k.replaces, "launches": 0, "max_abs_err": 0}
             for k in KERNELS.values()}
+        # phase 8's measured peak, beside phase 10's predicted one
+        self.train_peak = None
 
     def add(self, kernel, err: int, **numbers):
         row = self.rows[kernel.name]
@@ -2779,6 +2812,7 @@ def train_full_width(report, device, workdir):
         undo_ckpt()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    report.train_peak = peak
     for kname, c in runs.items():
         report.rows[kname]["launches"] += c
     n_first = TRAIN_FAIL_AT[0]
@@ -3190,6 +3224,7 @@ def plan_granite(rank, mesh, device, out):
     from repro_torch.optim import init_opt_state
     from repro_torch.parallel.compat import set_mesh
     from repro_torch.parallel.sharding import Rules
+    from repro_torch.serve import Engine
     from repro_torch.training import Hyper, make_train_step
     rules, say = Rules(), out["say"]
     cfg, lm, secs = full_width(device, PLAN_ARCH)
@@ -3211,6 +3246,9 @@ def plan_granite(rank, mesh, device, out):
             torch.distributed.broadcast(nxt, 0)    # rank 0's, in every rank
             fed.append(nxt)
         del cache
+    prompts = plan_prompts(cfg)
+    ref_gen = Engine(cfg, lm, max_seq=PLAN_GEN_MAX_SEQ,
+                     sort_impl="pallas").generate(prompts, PLAN_GEN_NEW)
     if rank == 0:
         ms = []
         m = timed(make_train_step(cfg, rules, hyper), ms)(
@@ -3319,6 +3357,22 @@ def plan_granite(rank, mesh, device, out):
         if not all(np.isfinite(errs)):
             raise AssertionError("plan: the sharded decode is not finite")
         del cache_s
+        # C8: the engine serves the sharded LM (under no_grad: torch 2.11's
+        # DTensor raises under inference_mode)
+        ms = []
+        gen, runs = launch_counts(lambda: timed(Engine(
+            cfg, lm, max_seq=PLAN_GEN_MAX_SEQ, sort_impl="pallas").generate,
+            ms)(prompts, PLAN_GEN_NEW))
+        launches.update(runs)
+        same = sum(a == b for g, w in zip(gen, ref_gen) for a, b in zip(g, w))
+        say(f"Engine.generate on the sharded LM (no_grad, C8): "
+            f"{len(prompts)} prompts of {list(PLAN_GEN_PROMPTS)} tokens, "
+            f"{PLAN_GEN_NEW} new tokens, 'pallas': {ms[0]:.2f} ms; {same} of "
+            f"{len(prompts) * PLAN_GEN_NEW} greedy tokens equal to the "
+            f"unsharded engine's (bf16 at random init is chaotic: printed; "
+            f"the gpu test holds them in float32); launches {used(runs)}")
+        if [len(g) for g in gen] != [PLAN_GEN_NEW] * len(prompts):
+            raise AssertionError(f"plan: the sharded engine answered {gen}")
         out["peak_before_step"] = torch.cuda.max_memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
         opt = init_opt_state(lm)
@@ -3342,6 +3396,14 @@ def plan_granite(rank, mesh, device, out):
     del lm, opt, m
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def plan_prompts(cfg):
+    """The engine's prompts, of ``PLAN_GEN_PROMPTS`` tokens, from seed 3."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    return [rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in PLAN_GEN_PROMPTS]
 
 
 def plan_tokens(cfg, seq: int, device):
@@ -3830,6 +3892,126 @@ def phase_plan(report, device):
           f"processes' start")
 
 
+# --- phase 10 ---------------------------------------------------------------
+
+def launch_hw(device):
+    """The card's own properties (``launch.hw.device_properties``) beside
+    ``nvidia-smi``'s name and power limit; fails unless it is an H100 whose
+    memory is within ``HW_MEMORY_RTOL`` of the data sheet's ``HBM_BYTES``."""
+    from repro_torch.launch import hw
+    props = hw.device_properties(device)
+    smi = nvidia_smi()
+    rel = abs(props["total_memory"] - hw.HBM_BYTES) / hw.HBM_BYTES
+    print(f"[launch] hw: {props} beside nvidia-smi '{smi}'; total_memory "
+          f"{rel:.4f} from the data sheet's {hw.HBM_BYTES:.0f} B (bound "
+          f"{HW_MEMORY_RTOL}); peak bf16 {hw.PEAK_FLOPS_BF16:.3g} FLOP/s, HBM "
+          f"{hw.HBM_BW:.3g} B/s, NVLink {hw.NVLINK_BW:.3g} B/s (data sheet)")
+    if "H100" not in props["name"] or rel > HW_MEMORY_RTOL:
+        raise AssertionError(f"launch: the card {props} is not the H100 of "
+                             "launch.hw")
+
+
+def launch_conformance():
+    """The conformance matrix in every mode of this host, its kernels'
+    launch counters set to 0 before and read after: every cell of
+    ``cuda-kernel`` and every supported cell of ``cuda-graph`` must
+    conform, and B1-B6 must each have run."""
+    from repro_torch.testing import (CONTRACTS, assert_conforms,
+                                     available_modes, iter_matrix, run_case)
+    modes = available_modes()
+    tally = {m.name: Counter() for m in modes}
+    reasons, failed = Counter(), []
+    t0 = time.perf_counter()
+
+    def run_all():
+        for op, engine, mode, gen, dtype in iter_matrix(modes):
+            contract = CONTRACTS[op]
+            reason = contract.supports(engine, mode, gen)
+            if reason:
+                tally[mode.name]["skipped"] += 1
+                reasons[(mode.name, op, engine, reason)] += 1
+                continue
+            case = contract.build(gen, dtype)
+            try:
+                run = run_case(contract, case, engine, mode)
+                assert_conforms(contract, run.case, run.outputs)
+                tally[mode.name]["passed"] += 1
+            except Exception as e:          # noqa: BLE001 - reported below
+                tally[mode.name]["failed"] += 1
+                failed.append(f"{op}-{engine}-{mode.name}-{gen}-{dtype}: "
+                              f"{type(e).__name__}: {str(e)[:300]}")
+    _, launches = launch_counts(run_all)
+    for name, t in tally.items():
+        print(f"[launch] conformance {name}: {t['passed']} passed, "
+              f"{t['skipped']} skipped with a reason, {t['failed']} failed")
+    for (mode, op, engine, reason), n in sorted(reasons.items()):
+        print(f"[launch]   skipped {n} cells of {op}/{engine} in {mode}: "
+              f"{reason}")
+    print(f"[launch] conformance took {time.perf_counter() - t0:.1f} s; "
+          f"launches {used(launches)}")
+    for line in failed[:20]:
+        print(f"[launch]   FAILED {line}")
+    if failed:
+        raise AssertionError(f"launch: {len(failed)} conformance cells "
+                             "failed")
+    missing = [k for k in CONFORMANCE_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"launch: the matrix never launched {missing}")
+
+
+def launch_dryrun(report):
+    """``launch.dryrun.run_cell`` of Granite at full width on fake (1, 1)
+    and (2, 2) meshes, at phase 8's train cell and phase 6's prefill cell:
+    FLOPs, bytes, collectives and memory a rank; the (2, 2) parameter
+    bytes held to phase 9's measurement, the predicted train peak printed
+    beside phase 8's measured one."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    cells = (ShapeCell("phase8_train", "train", TRAIN_SEQ, TRAIN_BATCH),
+             ShapeCell("phase6_prefill", "prefill", DISPATCH_SEQ,
+                       SERVE_BATCH))
+    for shape in DRYRUN_MESHES:
+        for cell in cells:
+            rec = dryrun.run_cell(DRYRUN_ARCH, cell, False, accum=1,
+                                  mesh_shape=shape)
+            mem = rec["memory"]
+            print(f"[launch] dry run {DRYRUN_ARCH} {cell.kind} "
+                  f"{cell.global_batch} x {cell.seq_len} on a fake "
+                  f"{rec['mesh']} group (meta local shards, "
+                  f"'{rec['sort_impl']}' dispatch): {rec['trace_s']} s; "
+                  f"FLOPs a rank {rec['flops_per_device']:.6g} (global "
+                  f"{rec['flops_global']:.6g}, redundant "
+                  f"{rec['flops_redundant']:.6g}); HBM bytes a rank "
+                  f"{rec['hbm_bytes_per_device']:.6g}; collectives "
+                  f"{rec['collectives']}; parameters {mem['params_bytes']} B"
+                  f", optimizer {mem['opt_state_bytes']} B, peak "
+                  f"{mem['peak_bytes']} B a rank; roofline "
+                  f"{rec['roofline']}")
+            want = DRYRUN_PARAM_BYTES.get(shape)
+            if want is not None and mem["params_bytes"] != want:
+                raise AssertionError(f"launch: {mem['params_bytes']} B of "
+                                     f"parameters a rank on {shape}, phase 9"
+                                     f" measured {want}")
+            if cell.kind == "train" and shape == (1, 1):
+                measured = report.train_peak
+                ratio = (f"{mem['peak_bytes'] / measured:.3f}" if measured
+                         else "not measured")
+                print(f"[launch] predicted train peak {mem['peak_bytes']} B "
+                      f"beside phase 8's max_memory_allocated {measured} B "
+                      f"(train_loop with its snapshots): ratio {ratio}")
+
+
+def phase_launch(report, device):
+    """The launch layer and the conformance kit on the card
+    (``phase_launch``): :func:`launch_hw`, :func:`launch_conformance`,
+    :func:`launch_dryrun`."""
+    t_phase = time.perf_counter()
+    launch_hw(device)
+    launch_conformance()
+    launch_dryrun(report)
+    print(f"[launch] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def synthetic_soak_words():
     """The soak's 200 words: ``tests/test_chaos.py``'s generator."""
     import numpy as np
@@ -3874,6 +4056,7 @@ def main() -> int:
     phase_families(report, device)
     phase_train(report, device)
     phase_plan(report, device)
+    phase_launch(report, device)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..parallel.sharding import (Rules, constrain, constrain_core,
+from ..parallel.sharding import (Rules, constrain, constrain_as,
+                                 constrain_core,
                                  replicated_like)
 from .config import ModelConfig
 from .layers import Norm, apply_rope, rmsnorm
@@ -82,7 +83,9 @@ def _cache_write(cache_arr, new, cur_index):
     cur = _as_index(cur_index, cache_arr.device)
     rows = torch.arange(cache_arr.shape[0], device=cache_arr.device)
     if cur.dim() == 0:
-        cache_arr[rows, cur.clamp(0, s - 1)] = new
+        # a 1-element index, not a 0-d one: a 0-d index is read back to the
+        # host as a Python int
+        cache_arr[rows, cur.clamp(0, s - 1).reshape(1)] = new
         return cache_arr
     inside = (cur >= 0) & (cur < s)
     col = cur.clamp(0, s - 1)
@@ -159,15 +162,32 @@ class Attention(ParamModule):
         self.wo = b.param((h, d, dm), ("heads", None, "embed"))
 
 
+def _project(x, w, rules, w_axes):
+    """``einsum("btd,dhk->bthk", x, w)`` as the one product it is, over
+    the fused ``(h, k)`` axis. Both sides of the fused axis are placed as
+    ``h`` divides (:func:`sharding.constrain_as`): the weight by its own
+    axes ``w_axes`` (its first two), the product by ``act_heads`` before
+    it is split. DTensor may otherwise split a fused axis over ``model``
+    where ``h`` does not divide (8 KV heads on 16 ranks), and then cannot
+    split it into ``(h, k)`` — in the forward pass or, for the weight's
+    gradient, in the backward. The identity placement on one device."""
+    b, t, d = x.shape
+    h, k = w.shape[1:]
+    wf = constrain_as(w.reshape(d, h * k), rules, w_axes, (d, h))
+    y = torch.matmul(x, wf)
+    y = constrain_as(y, rules, ("batch", "seq", "act_heads"), (b, t, h))
+    return y.reshape(b, t, h, k)
+
+
 def _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
     B, T = x.shape[:2]
     h, kh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = cfg.q_per_kv
     dt = x.dtype
 
-    q = torch.einsum("btd,dhk->bthk", x, p.wq.to(dt))
-    k = torch.einsum("btd,dhk->bthk", x, p.wk.to(dt))
-    v = torch.einsum("btd,dhk->bthk", x, p.wv.to(dt))
+    q = _project(x, p.wq.to(dt), rules, ("embed", "heads"))
+    k = _project(x, p.wk.to(dt), rules, ("embed", "kv_heads"))
+    v = _project(x, p.wv.to(dt), rules, ("embed", "kv_heads"))
     if cfg.rope_kind != "none":
         q = apply_rope(q, cos, sin, cfg.rope_pct)
         k = apply_rope(k, cos, sin, cfg.rope_pct)
@@ -186,8 +206,10 @@ def _gqa(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
         mask = _causal_mask(T, T, x.device)
         new_cache = {"k": k, "v": v} if return_cache else None
 
-    qg, keys, vals = (constrain_core(t, rules)
-                      for t in (q.reshape(B, T, kh, g, d), keys, vals))
+    # q in the core's placement before its heads split into (kh, g): the
+    # heads are whole there, so no split leaves a shard uneven
+    qg = constrain_core(q, rules).reshape(B, T, kh, g, d)
+    keys, vals = (constrain_core(t, rules) for t in (keys, vals))
     s_len = keys.shape[1]
     chunk = cfg.attn_kv_chunk
     if (cache is None and chunk and T > 1 and s_len > chunk
@@ -237,14 +259,14 @@ class MLA(ParamModule):
                                ("embed", "heads", None))
 
 
-def _mla_queries(cfg, p, x, cos, sin):
+def _mla_queries(cfg, p, x, cos, sin, rules):
     m = cfg.mla
     dt = x.dtype
     if m.q_lora:
         cq = rmsnorm(p.q_norm, x @ p.wq_a.to(dt), cfg.norm_eps)
-        q = torch.einsum("btq,qhk->bthk", cq, p.wq_b.to(dt))
+        q = _project(cq, p.wq_b.to(dt), rules, ("q_lora", "heads"))
     else:
-        q = torch.einsum("btd,dhk->bthk", x, p.wq.to(dt))
+        q = _project(x, p.wq.to(dt), rules, ("embed", "heads"))
     qn, qr = q[..., :m.qk_nope], q[..., m.qk_nope:]
     return qn, apply_rope(qr, cos, sin)
 
@@ -255,7 +277,7 @@ def _mla(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
     dt = x.dtype
     scale = (m.qk_nope + m.qk_rope) ** -0.5
 
-    qn, qr = _mla_queries(cfg, p, x, cos, sin)
+    qn, qr = _mla_queries(cfg, p, x, cos, sin, rules)
     qn = constrain(qn, rules, "batch", "seq", "act_heads", None)
 
     ckv_full = x @ p.wkv_a.to(dt)
@@ -282,7 +304,7 @@ def _mla(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
         ctx = torch.einsum("bthc,chv->bthv", ctx_lat, w_uv)
     else:
         # naive train / prefill: per-head keys and values from the latent
-        kv = torch.einsum("btc,chn->bthn", ckv, wkv_b)
+        kv = _project(ckv, wkv_b, rules, ("kv_lora", "heads"))
         kn, v = kv[..., :m.qk_nope], kv[..., m.qk_nope:]
         mask = _causal_mask(T, T, x.device)
         qn_c, qr_c, kn, v, kr_c = (constrain_core(t, rules)
@@ -292,7 +314,14 @@ def _mla(cfg, p, x, cos, sin, rules, cache, cur_index, return_cache):
         probs = _softmax_attend(scores, mask, dt)
         ctx = torch.einsum("bhts,bshv->bthv", probs, v)
         new_cache = {"ckv": ckv, "kr": kr} if return_cache else None
-    out = torch.einsum("bthv,hvm->btm", ctx, p.wo.to(dt))
+    # the output product over the fused (heads, v_head) axis, both sides
+    # with heads whole, as in ``_gqa``; placed after the flatten, so that in
+    # the backward pass the context's gradient returns to that placement
+    # before it is split into (heads, v_head) again (DTensor may otherwise
+    # hand it back split over ``model`` where the heads do not divide)
+    B, _, h, v = ctx.shape
+    wo = constrain(p.wo.to(dt).reshape(h * v, -1), rules, None, "embed")
+    out = constrain_core(ctx.reshape(B, T, h * v), rules) @ wo
     return out, new_cache
 
 

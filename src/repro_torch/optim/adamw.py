@@ -60,11 +60,12 @@ def opt_state_axes(param_axes):
 def adamw_update(grads, state, params, lr, cfg: AdamWConfig):
     """One AdamW step: ``params`` (an ``nn.Module`` or a dict of tensors)
     and ``state`` updated in place from ``grads`` (a dict named as the
-    parameters) at learning rate ``lr`` (a float or a 0-d tensor).
-    Returns ``(params, state)``."""
+    parameters) at learning rate ``lr`` (a float, or a 0-d tensor, taken as
+    it is: never read back to the host, which a fake tensor cannot be, and
+    the same float32 value either way). Returns ``(params, state)``."""
     named = _named(params)
-    lr = float(lr)
     count = state["count"] + 1
+    lr = lr.to(torch.float32) if isinstance(lr, torch.Tensor) else float(lr)
     c = count.float()
     bc1 = 1.0 - cfg.b1 ** c
     bc2 = 1.0 - cfg.b2 ** c

@@ -32,8 +32,8 @@ from typing import Mapping
 from .compat import get_mesh
 
 __all__ = ["Rules", "DEFAULT_RULES", "NamedSharding", "constrain",
-           "constrain_core", "spec_for", "placements", "mesh_sizes",
-           "mesh_inputs", "whole", "replicated_like"]
+           "constrain_as", "constrain_core", "spec_for", "placements",
+           "mesh_sizes", "mesh_inputs", "whole", "replicated_like"]
 
 
 # FSDP (params sharded over `data`) x TP (`model`) x DP over pods — the
@@ -191,13 +191,21 @@ def constrain(x, rules: Rules, *axes):
     """Place ``x`` by the divisibility-aware spec of ``axes`` on the
     active mesh (``DTensor.redistribute``; a partial sum is reduced). The
     identity outside a mesh or for a plain tensor."""
+    return constrain_as(x, rules, axes, x.shape)
+
+
+def constrain_as(x, rules: Rules, axes, shape):
+    """:func:`constrain` by the divisibility-aware spec of ``axes`` at
+    ``shape`` — the shape ``x`` is about to be viewed as, one entry a
+    dimension of ``x``: a fused ``(heads, k)`` axis is placed as ``heads``
+    divides, so that splitting it again never leaves a shard uneven."""
     mesh = get_mesh()
     if mesh is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    spec = rules.shape_spec(axes, x.shape, mesh_sizes(mesh))
+    spec = rules.shape_spec(axes, shape, mesh_sizes(mesh))
     return x.redistribute(mesh, placements(spec, mesh))
 
 

@@ -9,7 +9,12 @@ they route and use expert capacity, as in the reference. Mamba2 layers
 read the prefill's ``seq_mask``, so each state stops at its prompt's end.
 
 Eager PyTorch under ``torch.inference_mode``: prefill, the cache grown to
-``max_seq``, then one decode step a token. Greedy decoding takes the
+``max_seq``, then one decode step a token. Where the parameters are
+``DTensor``s (a sharded LM, ``models.param.shard_lm``) it runs under
+``torch.no_grad`` instead: torch 2.11's DTensor has no sharding strategy for
+the ``aten.detach_`` that ``inference_mode`` adds, so every redistribution
+would raise. The mode is chosen from the parameters before the first op;
+the tokens are the same under either. Greedy decoding takes the
 argmax, the first maximum on ties (``jnp.argmax``'s rule). Sampling draws
 with ``torch.multinomial`` from a ``torch.Generator`` seeded with ``seed``:
 deterministic for a seed, but not the same draws as the reference's
@@ -18,6 +23,7 @@ deterministic for a seed, but not the same draws as the reference's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional
 
@@ -26,7 +32,8 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.model import LM, decode_step, forward, init_cache
-from ..parallel.sharding import Rules
+from ..parallel.compat import get_mesh, set_mesh
+from ..parallel.sharding import Rules, whole
 
 __all__ = ["Engine", "GenerationResult"]
 
@@ -83,17 +90,38 @@ class Engine:
         logits, _, cache = forward(
             self.cfg, self.params, {"tokens": tokens, "seq_mask": seq_mask},
             self.rules, sort_impl=self.sort_impl, return_cache=True)
-        return logits, cache
+        return whole(logits), cache
 
     def _decode(self, cache, tok, cur):
         logits, cache = decode_step(self.cfg, self.params, cache, tok, cur,
                                     self.rules, sort_impl=self.sort_impl)
-        return logits[:, 0], cache
+        return whole(logits)[:, 0], cache
 
-    @torch.inference_mode()
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` of the parameters where they are
+        ``DTensor``s (a sharded LM), else ``None``."""
+        from torch.distributed.tensor import DTensor
+        for p in self.params.parameters():
+            if isinstance(p, DTensor):
+                return p.device_mesh
+        return None
+
     def generate(self, prompts: List[List[int]], max_new: int = 16,
                  greedy: bool = True, seed: int = 0) -> List[List[int]]:
-        """Generate for a batch of variable-length prompts (one bucket)."""
+        """Generate for a batch of variable-length prompts (one bucket). A
+        sharded LM runs under its parameters' mesh where no mesh is active,
+        and under ``torch.no_grad`` (the module's docstring); the logits
+        are taken whole, so the tokens are read as from an unsharded LM."""
+        mesh = self.mesh
+        if mesh is None:
+            with torch.inference_mode():
+                return self._generate(prompts, max_new, greedy, seed)
+        with torch.no_grad(), (set_mesh(mesh) if get_mesh() is None
+                               else contextlib.nullcontext()):
+            return self._generate(prompts, max_new, greedy, seed)
+
+    def _generate(self, prompts, max_new, greedy, seed):
         dev = self.device
         bsz = len(prompts)
         lens = np.array([len(p) for p in prompts], np.int64)

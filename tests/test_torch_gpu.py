@@ -6,6 +6,8 @@ which skips where there is no card; run them on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -974,6 +976,8 @@ def test_bfloat16_snapshot_round_trips_on_the_card(cuda, tmp_path):
 
 _PLAN_RANK = r"""
 import copy, dataclasses, types
+import json
+
 import numpy as np
 from repro_torch.configs import get_smoke_config
 from repro_torch.interop import to_numpy
@@ -1075,3 +1079,56 @@ def test_sharded_smoke_train_step_on_the_card(cuda, plan_run):
 def test_ep_moe_on_the_card_matches_moe(cuda, plan_run):
     np.testing.assert_allclose(plan_run["ep/y"], plan_run["ep/moe"], rtol=0,
                                atol=2e-4)
+
+
+# ---------------- C8: the engine serves a sharded LM on the card ----------------
+
+_C8_RANK = r"""
+import copy, json
+import json
+
+import numpy as np
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import init_lm
+from repro_torch.models.param import shard_lm
+from repro_torch.parallel.compat import make_mesh
+from repro_torch.parallel.sharding import Rules
+from repro_torch.serve import engine as E
+
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = get_smoke_config("granite-moe-1b-a400m").replace(
+    param_dtype="float32", compute_dtype="float32")
+lm = init_lm(cfg, seed=0, device=dev)
+rng = np.random.default_rng(0)
+prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+           for n in (5, 9, 3, 7, 12, 4, 6, 8)]
+want = E.Engine(cfg, copy.deepcopy(lm), max_seq=32,
+                sort_impl="pallas").generate(prompts, 4)
+shard_lm(lm, Rules(), make_mesh((1, 2), ("data", "model"), "cuda"),
+         src_data_rank=None)
+modes = []
+forward, decode = E.forward, E.decode_step
+def seen(fn):
+    def run(*a, **k):
+        modes.append(torch.is_inference_mode_enabled())
+        return fn(*a, **k)
+    return run
+E.forward, E.decode_step = seen(forward), seen(decode)
+got = E.Engine(cfg, lm, max_seq=32, sort_impl="pallas").generate(prompts, 4)
+with open(f"{workdir}/c8_{rank}.json", "w") as f:
+    json.dump({"want": want, "got": got, "modes": modes}, f)
+"""
+
+
+def test_sharded_engine_serves_on_the_card(cuda, tmp_path):
+    """C8: ``Engine.generate`` on the LM sharded over 2 gloo ranks of the
+    card (a ``(1, 2)`` mesh) runs outside ``inference_mode`` and gives the
+    unsharded engine's greedy tokens, in float32."""
+    from _torch_mesh import launch_ranks
+    launch_ranks(_C8_RANK, 2, tmp_path, timeout=300)
+    for r in range(2):
+        out = json.loads((tmp_path / f"c8_{r}.json").read_text())
+        assert out["got"] == out["want"]
+        assert len(out["modes"]) == 4 and not any(out["modes"])

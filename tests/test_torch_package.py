@@ -67,7 +67,9 @@ def test_importing_the_port_loads_no_jax():
                 "repro_torch.models, repro_torch.models.moe, "
                 "repro_torch.serve, repro_torch.launch.serve, "
                 "repro_torch.parallel.sharding, repro_torch.data.bucketing, "
-                "repro_torch.data.loader; "
+                "repro_torch.data.loader, repro_torch.launch.dryrun, "
+                "repro_torch.launch.hillclimb, repro_torch.launch.enrich, "
+                "repro_torch.testing; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'repro')]; print(bad); "
                 "sys.exit(1 if bad else 0)"])
