@@ -100,7 +100,8 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      permutation at both MoE layers against the stable argsort's, logits
      within the phase-6 tolerance) and 4 decode steps (B1 dispatches of 48
      assignments); and the engine's greedy tokens at the smoke configs of
-     minicpm3-4b, deepseek-v2-236b, mamba2-370m and zamba2-1.2b on the card
+     minicpm3-4b, deepseek-v2-236b, mamba2-370m, zamba2-1.2b and glm4-9b on
+     the card
      against the CPU's, the batch holding a 2-token prompt;
   8. train — Granite-MoE 1B at its published width and depth (bf16,
      weights drawn on the card from seed 0, remat 'dots') through
@@ -114,7 +115,8 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      'xla' twice, bit-identical, every dispatch's permutation the stable
      argsort's; Zamba2-1.2B at its published width and depth, 4 steps on
      one repeated batch, losses finite and falling; and three float32
-     train steps of six smoke configs on the card against the CPU
+     train steps of seven smoke configs (qwen2-vl-2b among them) on the
+     card against the CPU
      (``phase_train``);
   9. plan — the parallel plan (``phase_plan``): 4 gloo ranks of this card
      (``--plan-rank`` processes) as a ``(data 2, model 2)`` mesh. Granite-MoE
@@ -151,7 +153,22 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      and (2, 2) groups at phase 8's train cell (8 x 512) and phase 6's
      prefill (8 x 512): FLOPs, bytes, collectives and memory a rank, the
      (2, 2) parameters held to phase 9's 742,891,520 B, the predicted train
-     peak printed beside phase 8's measured one.
+     peak printed beside phase 8's measured one;
+ 11. examples — the port's examples and the entry points at the published
+     configs no other phase runs (``phase_examples``): each module of
+     ``repro_torch.examples`` through its ``main`` on the card (quickstart,
+     serve_lm, ``train_lm --steps 300 --fail-at 150``; distributed_sort and
+     moe_expert_parallel through their own launch of 8 gloo ranks on
+     ``cuda:0``), each printing its ``complete`` line, its time and its
+     kernels' launches (an 8-rank example's summed over its ranks), each
+     launching the kernels it must; then ``launch.serve.main`` of glm4-9b
+     and mamba2-370m at their published configs (bf16 weights drawn on the
+     card from seed 0; 24 requests, 8 new tokens, max_seq 128, the kernels'
+     dispatch): every request answered with 8 tokens, tokens/s, prefill and
+     decode medians, peak memory and the parameter count; and
+     ``launch.train.main`` of qwen2-vl-2b and musicgen-large at their
+     published configs (4 steps of 4 x 32): 4 finite losses, the median
+     step, peak memory and the parameter count.
 
 Every kernel row carries ``ms`` (CUDA events around 20 back-to-back calls,
 so the host's time per call counts where it is longer) and ``device_ms``
@@ -255,7 +272,7 @@ DEEPSEEK_ARCH = "deepseek-v2-236b"
 DEEPSEEK_LAYERS = 3
 DEEPSEEK_DECODE_STEPS = 4
 SMOKE_ARCHS = ("minicpm3-4b", "deepseek-v2-236b", "mamba2-370m",
-               "zamba2-1.2b")
+               "zamba2-1.2b", "glm4-9b")
 
 # phase 8: training — Granite-MoE 1B at full width through train_loop with
 # a failure and a resume, one step with each dispatch, Zamba2-1.2B at full
@@ -273,7 +290,8 @@ ZAMBA_ARCH = "zamba2-1.2b"
 ZAMBA_STEPS = 4
 ZAMBA_HYPER = dict(lr=1e-3, warmup=1, total_steps=ZAMBA_STEPS)
 TRAIN_SMOKE_ARCHS = ("glm4-9b", "granite-moe-1b-a400m", "minicpm3-4b",
-                     "mamba2-370m", "zamba2-1.2b", "musicgen-large")
+                     "mamba2-370m", "zamba2-1.2b", "musicgen-large",
+                     "qwen2-vl-2b")
 TRAIN_SMOKE_STEPS = 3
 TRAIN_SMOKE_SHAPE = (2, 32)           # 128 assignments: the B1 tier
 # card against CPU in float32 with TF32 off (the port makes no cuDNN
@@ -345,6 +363,28 @@ CONFORMANCE_KERNELS = ("oets_rows_lex", "bitonic_rows_lex", "distribute_rows",
 DRYRUN_ARCH = "granite-moe-1b-a400m"
 DRYRUN_MESHES = ((1, 1), (2, 2))
 DRYRUN_PARAM_BYTES = {(2, 2): 742_891_520}
+
+# phase 11: the examples of repro_torch.examples, each with the kernels it
+# must launch (the 8-rank ones counted over their ranks; train_lm's glm4-9b
+# smoke config is dense, and moe_expert_parallel sorts its dispatch with
+# torch.argsort in ep_moe and moe's 'xla' path, as the reference's
+# example does, so neither reaches a kernel), and the CLIs at
+# the published configs no other phase runs: two served (24 requests, 8 new
+# tokens, max_seq 128), two trained (4 steps of 4 x 32)
+EXAMPLES = (
+    ("quickstart", (), ("oets_rows_lex", "distribute_rows",
+                        "merge_runs_kway")),
+    ("serve_lm", (), ("oets_rows_lex",)),
+    ("train_lm", ("--steps", "300", "--fail-at", "150"), ()),
+    ("distributed_sort", (), ("oets_rows_lex", "bitonic_rows_lex",
+                              "merge_adjacent_lex", "merge_runs_lex")),
+    ("moe_expert_parallel", (), ()),
+)
+CLI_SERVE_ARCHS = ("glm4-9b", "mamba2-370m")
+CLI_REQUESTS = 24
+CLI_MAX_NEW = 8
+CLI_TRAIN_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+CLI_TRAIN_STEPS = 4
 
 
 def cuda_time(fn, iters: int, warmup: int = 2) -> float:
@@ -2995,7 +3035,7 @@ def train_smoke_card_against_cpu(device):
 def phase_train(report, device):
     """Training on the card (``phase_train``): Granite-MoE 1B at full width
     trained, killed and resumed; one step with each dispatch bit for bit;
-    Zamba2-1.2B at full width; six smoke archs card against CPU."""
+    Zamba2-1.2B at full width; seven smoke archs card against CPU."""
     import gc
     import tempfile
     import torch
@@ -4012,6 +4052,177 @@ def phase_launch(report, device):
     print(f"[launch] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 11 ---------------------------------------------------------------
+
+class Tee:
+    """A stream that writes to every one of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def printed(run):
+    """``run()`` with what it prints to ``sys.stdout`` shown and kept;
+    returns ``(result, text)``. A spawned process's prints reach the
+    terminal but are not kept."""
+    import io
+    buf = io.StringIO()
+    sys.stdout.flush()
+    with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
+        out = run()
+    sys.stdout.flush()
+    return out, buf.getvalue()
+
+
+def run_example(report, name: str, argv, path, device):
+    """``repro_torch.examples.<name>.main(argv)`` on ``device``, its launch
+    counters read around it (an 8-rank example's summed over the launches
+    each rank reports): it must print ``<name> complete`` and launch each
+    kernel of ``path``."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    t0 = time.perf_counter()
+    (out, text), runs = launch_counts(lambda: printed(
+        lambda: mod.main([*argv, "--device", device.type])))
+    seconds = time.perf_counter() - t0
+    ranks = out if isinstance(out, list) else []
+    total = Counter(runs)
+    for _, launches in ranks:
+        total.update(launches)
+    for kname, c in total.items():
+        report.rows[kname]["launches"] += c
+    if f"{name} complete" not in text:
+        raise AssertionError(f"examples: {name} printed no complete line")
+    missing = [k for k in path if not total[k]]
+    if missing:
+        raise AssertionError(f"examples: {name} never launched {missing}")
+    where = f" over {len(ranks)} ranks on {device.type}" if ranks else ""
+    print(f"[examples] {' '.join((name, *argv))}: complete in {seconds:.2f} s"
+          f"{where}; launches {used(dict(total))}")
+
+
+def count_params(arch: str) -> int:
+    """``arch``'s parameters at its published config, counted on meta."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import count_params as count
+    return count(get_config(arch))[0]
+
+
+def cli_serve(report, arch: str, device):
+    """``launch.serve.main(["--arch", arch, "--sort-impl", "pallas"])`` at
+    the published config: every one of its 24 requests answered with 8
+    tokens; the scheduler's run, each prefill batch and decode step timed
+    (the engine's class patched for the call), peak memory."""
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import BucketedScheduler, Engine
+    n_params = count_params(arch)
+    times = {"run": [], "prefill": [], "decode": []}
+    real = (BucketedScheduler.run, Engine._prefill, Engine._decode)
+    BucketedScheduler.run = timed(real[0], times["run"])
+    Engine._prefill = timed(real[1], times["prefill"])
+    Engine._decode = timed(real[2], times["decode"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results, runs = launch_counts(lambda: serve_mod.main(
+            ["--arch", arch, "--sort-impl", "pallas",
+             "--device", device.type]))
+    finally:
+        BucketedScheduler.run, Engine._prefill, Engine._decode = real
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for kname, c in runs.items():
+        report.rows[kname]["launches"] += c
+    if sorted(r.request_id for r in results) != list(range(CLI_REQUESTS)) \
+            or any(len(r.tokens) != CLI_MAX_NEW for r in results):
+        raise AssertionError(f"cli: {arch} did not answer every one of "
+                             f"{CLI_REQUESTS} requests with {CLI_MAX_NEW} "
+                             "tokens")
+    if not runs["oets_rows_lex"]:
+        raise AssertionError(f"cli: {arch}'s admission never launched B1")
+    tokens = sum(len(r.tokens) for r in results)
+    print(f"[cli] serve {arch}: {n_params} parameters (counted on meta, "
+          f"{n_params * 2} B in bf16); {len(results)} requests, {tokens} "
+          f"tokens in {times['run'][0]:.2f} ms of the scheduler's run "
+          f"({tokens / (times['run'][0] / 1e3):.1f} tokens/s), "
+          f"{len(times['prefill'])} prefill batches, median "
+          f"{statistics.median(times['prefill']):.2f} ms a batch (all "
+          f"{[round(t, 2) for t in times['prefill']]}); "
+          f"{len(times['decode'])} decode steps, median "
+          f"{statistics.median(times['decode']):.2f} ms a step; "
+          f"max_memory_allocated {peak} B; main {wall:.2f} s with the "
+          f"weights' draw; launches {used(runs)}")
+
+
+def cli_train(report, arch: str, device):
+    """``launch.train.main(["--arch", arch, "--steps", "4"])`` at the
+    published config and the CLI's batch 4 x seq 32: 4 finite losses; each
+    step timed; peak memory."""
+    import math
+    import torch
+    from repro_torch.launch import train as train_mod
+    n_params = count_params(arch)
+    times, per_step = [], []
+    undo = timed_steps(train_mod, times, per_step)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        (losses, events), runs = launch_counts(lambda: train_mod.main(
+            ["--arch", arch, "--steps", str(CLI_TRAIN_STEPS),
+             "--device", device.type]))
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for kname, c in runs.items():
+        report.rows[kname]["launches"] += c
+    if len(losses) != CLI_TRAIN_STEPS or events \
+            or not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"cli: {arch} trained losses {losses}, "
+                             f"events {events}")
+    print(f"[cli] train {arch}: {n_params} parameters (counted on meta); "
+          f"{CLI_TRAIN_STEPS} steps of 4 x 32, losses "
+          f"{[round(l, 5) for l in losses]}; median "
+          f"{statistics.median(times):.2f} ms a step (all "
+          f"{[round(t, 2) for t in times]}); max_memory_allocated {peak} B; "
+          f"main {wall:.2f} s with the weights' draw; launches {used(runs)}")
+
+
+def phase_examples(report, device):
+    """The port's examples and the CLIs at published configs on the card
+    (``phase_examples``): each of :data:`EXAMPLES` through its ``main``
+    (the 8-rank ones through their own launch of 8 processes on
+    ``cuda:0``), then :func:`cli_serve` of ``CLI_SERVE_ARCHS`` and
+    :func:`cli_train` of ``CLI_TRAIN_ARCHS``."""
+    import gc
+    import torch
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, argv, path in EXAMPLES:
+        run_example(report, name, argv, path, device)
+    for arch in CLI_SERVE_ARCHS:
+        cli_serve(report, arch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in CLI_TRAIN_ARCHS:
+        cli_train(report, arch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[examples] phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"{nvidia_smi()}")
+
+
 def synthetic_soak_words():
     """The soak's 200 words: ``tests/test_chaos.py``'s generator."""
     import numpy as np
@@ -4057,6 +4268,7 @@ def main() -> int:
     phase_train(report, device)
     phase_plan(report, device)
     phase_launch(report, device)
+    phase_examples(report, device)
     for name, row in report.rows.items():
         if row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")

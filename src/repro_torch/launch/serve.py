@@ -30,6 +30,8 @@ __all__ = ["main"]
 
 
 def main(argv=None):
+    """The command line's run; returns the scheduler's results (one
+    ``GenerationResult`` a request, in admission order)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -64,6 +66,7 @@ def main(argv=None):
           f"({gen / dt:.1f} tok/s) on {engine.device}")
     print("padding waste:",
           BucketedScheduler.padding_stats(reqs, bounds=[8, 16, 32, 48]))
+    return results
 
 
 if __name__ == "__main__":

@@ -153,6 +153,7 @@ def train_loop(cfg, steps: int = 20, batch: int = 4, seq: int = 32,
 
 
 def main(argv=None):
+    """The command line's run; returns ``(losses, recovery events)``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -176,6 +177,7 @@ def main(argv=None):
         device=args.device)
     print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f}); "
           f"{len(events)} recoveries")
+    return losses, events
 
 
 if __name__ == "__main__":

@@ -69,7 +69,11 @@ def test_importing_the_port_loads_no_jax():
                 "repro_torch.parallel.sharding, repro_torch.data.bucketing, "
                 "repro_torch.data.loader, repro_torch.launch.dryrun, "
                 "repro_torch.launch.hillclimb, repro_torch.launch.enrich, "
-                "repro_torch.testing; "
+                "repro_torch.testing, repro_torch.examples.quickstart, "
+                "repro_torch.examples.serve_lm, "
+                "repro_torch.examples.train_lm, "
+                "repro_torch.examples.distributed_sort, "
+                "repro_torch.examples.moe_expert_parallel; "
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'repro')]; print(bad); "
                 "sys.exit(1 if bad else 0)"])

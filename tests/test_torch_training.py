@@ -57,7 +57,7 @@ RULES, REF_RULES = Rules(), RefRules()
 ARCHS = [("glm4-9b", "xla"), ("granite-moe-1b-a400m", "xla"),
          ("granite-moe-1b-a400m", "pallas"), ("minicpm3-4b", "xla"),
          ("mamba2-370m", "xla"), ("zamba2-1.2b", "xla"),
-         ("musicgen-large", "xla")]
+         ("musicgen-large", "xla"), ("qwen2-vl-2b", "xla")]
 STEPS, B, S = 3, 2, 16
 LOSS_RTOL, GNORM_RTOL, PARAM_ATOL = 1e-5, 1e-4, 5e-3
 DELTA_ATOL, DELTA_OUTLIERS, MOMENT_RTOL = 5e-5, 8, 1e-3
