@@ -30,6 +30,7 @@ from ..kernels.keypack import pack_shortlex
 from ..kernels.lex import as_bits, from_bits, order_view
 from ..kernels.ops import bucketize, distribute, scatter_to_buckets, \
     segmented_sort
+from ..runtime import trace
 from ..runtime.failure import CapacityOverflow
 
 __all__ = ["Buckets", "bucketize_words", "bucketize_packed", "sort_buckets",
@@ -51,7 +52,15 @@ class Buckets:
 
 
 def _packed_keys(keys, device) -> torch.Tensor:
-    keys = to_device(keys, device)
+    """``keys`` as a tensor on ``device``: a copy from the host (a blocking
+    upload from pageable memory, the ``sort.upload`` sync) unless they are
+    there already."""
+    if isinstance(keys, torch.Tensor) and \
+            keys.device.type == torch.device(device).type:
+        keys = to_device(keys, device)
+    else:
+        with trace.sync("sort.upload"):
+            keys = to_device(keys, device)
     if keys.dim() != 2:
         raise ValueError("keys must be (n, lanes) packed words")
     return keys
@@ -169,20 +178,27 @@ def _fused_sort_packed(keys: torch.Tensor, *, capacity: int, algorithm: str,
     ``m`` the words that fit ``capacity``, in exact shortlex order."""
     n, lanes = keys.shape
     num_buckets = 4 * lanes + 1
-    dest, rank, counts = distribute(keys)
-    buckets = scatter_to_buckets(keys, dest, rank, num_buckets=num_buckets,
-                                 capacity=capacity)
-    counts_c = counts.clamp(max=capacity)
-    sorted_keys = sort_buckets(buckets, algorithm, counts=counts_c,
-                               block_size=block_size)
+    with trace.span("sort.bucket"):
+        dest, rank, counts = distribute(keys)
+        buckets = scatter_to_buckets(keys, dest, rank,
+                                     num_buckets=num_buckets,
+                                     capacity=capacity)
+        counts_c = counts.clamp(max=capacity)
+        sorted_keys = sort_buckets(buckets, algorithm, counts=counts_c,
+                                   block_size=block_size)
     # compaction: the real slots of every bucket, bucket after bucket — the
     # concatenation in length order of the paper's phase 4
-    slot = torch.arange(capacity, device=keys.device)
-    valid = slot[None, :] < counts_c[:, None]
-    flat_keys = as_bits(sorted_keys)[valid].view(torch.uint32)
-    blen = torch.arange(num_buckets, dtype=torch.int32, device=keys.device)
-    flat_lens = blen[:, None].expand(num_buckets, capacity)[valid]
-    packed = pack_shortlex(flat_lens, flat_keys)
+    with trace.span("sort.compact"):
+        slot = torch.arange(capacity, device=keys.device)
+        valid = slot[None, :] < counts_c[:, None]
+        with trace.sync("sort.compact"):
+            flat_keys = as_bits(sorted_keys)[valid].view(torch.uint32)
+        blen = torch.arange(num_buckets, dtype=torch.int32,
+                            device=keys.device)
+        with trace.sync("sort.compact"):
+            flat_lens = blen[:, None].expand(num_buckets, capacity)[valid]
+    with trace.span("sort.pack"):
+        packed = pack_shortlex(flat_lens, flat_keys)
     return flat_lens, flat_keys, counts, tuple(packed.lanes)
 
 
@@ -214,14 +230,19 @@ def sorted_packed(keys, algorithm: str = "pallas",
             return lens, keys
         return lens, keys, tuple(pack_shortlex(lens, keys).lanes)
     if capacity is None:
-        _, _, counts = distribute(keys)
-        capacity = max(1, int(counts.max()))
+        with trace.span("sort.size"):
+            _, _, counts = distribute(keys)
+            with trace.sync("sort.size"):
+                capacity = max(1, int(counts.max()))
     flat_lens, flat_keys, counts, packed = _fused_sort_packed(
         keys, capacity=capacity, algorithm=algorithm, block_size=block_size)
-    true_max = int(counts.max())
+    with trace.sync("sort.overflow_check"):
+        true_max = int(counts.max())
     if true_max > capacity:
-        ln = int(torch.argmax(counts))
-        dropped = int((counts - capacity).clamp(min=0).sum())
+        with trace.sync("sort.overflow"):
+            ln = int(torch.argmax(counts))
+        with trace.sync("sort.overflow"):
+            dropped = int((counts - capacity).clamp(min=0).sum())
         if on_overflow == "raise":
             raise CapacityOverflow(
                 f"bucket for length {ln} exceeds capacity {capacity}",

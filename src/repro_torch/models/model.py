@@ -49,6 +49,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..interop import resolve_device
 from ..parallel.compat import get_mesh, set_mesh
 from ..parallel.sharding import Rules, constrain, mesh_inputs
+from ..runtime import trace
 from .attention import init_attn_cache
 from .blocks import (MambaBlock, TransformerBlock, mamba_block,
                      transformer_block)
@@ -145,7 +146,12 @@ def default_positions(cfg: ModelConfig, batch: int, seq: int, offset=0,
                       device="cpu"):
     """Positions ``(batch, seq)`` from ``offset`` (a scalar, or ``(batch,)``
     per request); ``(batch, seq, 3)`` for M-RoPE (text: t = h = w)."""
-    off = torch.as_tensor(offset, dtype=torch.int32, device=device)
+    if isinstance(offset, torch.Tensor) and \
+            offset.device.type == torch.device(device).type:
+        off = torch.as_tensor(offset, dtype=torch.int32, device=device)
+    else:       # from the host: a blocking upload
+        with trace.sync("model.positions"):
+            off = torch.as_tensor(offset, dtype=torch.int32, device=device)
     if off.dim() == 1:
         off = off[:, None]
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + off

@@ -49,6 +49,7 @@ from ..core.bitonic import bitonic_sort_kv
 from ..core.oets import oets_sort_kv
 from ..kernels.ops import sort_kv as kernel_sort_kv
 from ..parallel.sharding import Rules, constrain, replicated_like, whole
+from ..runtime import trace
 from .config import ModelConfig
 from .layers import ACTS, MLP, mlp
 from .param import Builder, ParamModule
@@ -196,19 +197,20 @@ def _dispatch_sort(cfg, p, router, xf, rules, sort_impl):
     t, dm = xf.shape
     dev = xf.device
     cap = capacity(cfg, t)
-    top_p, top_e, aux = _route(cfg, router, xf)
+    with trace.span("moe.dispatch"):
+        top_p, top_e, aux = _route(cfg, router, xf)
 
-    n = t * m.top_k
-    flat_e = top_e.reshape(n).to(torch.int32)
-    flat_p = top_p.reshape(n)
+        n = t * m.top_k
+        flat_e = top_e.reshape(n).to(torch.int32)
+        flat_p = top_p.reshape(n)
 
-    iota = torch.arange(n, dtype=torch.int32, device=dev)
-    sorted_e, perm = _sort_assignments(flat_e, iota, sort_impl)
-    sorted_e, perm = sorted_e.long(), perm.long()
-    buf, slot = _pack(xf, m.top_k, sorted_e, perm, m.n_experts, cap)
-    out = _expert_ffn(cfg, p, buf.reshape(m.n_experts, cap, dm), rules)
-    y = _combine(out.reshape(m.n_experts * cap, dm), slot, perm, flat_p,
-                 m.top_k)
+        iota = torch.arange(n, dtype=torch.int32, device=dev)
+        sorted_e, perm = _sort_assignments(flat_e, iota, sort_impl)
+        sorted_e, perm = sorted_e.long(), perm.long()
+        buf, slot = _pack(xf, m.top_k, sorted_e, perm, m.n_experts, cap)
+        out = _expert_ffn(cfg, p, buf.reshape(m.n_experts, cap, dm), rules)
+        y = _combine(out.reshape(m.n_experts * cap, dm), slot, perm, flat_p,
+                     m.top_k)
     return y, aux
 
 

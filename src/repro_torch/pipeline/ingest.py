@@ -44,6 +44,7 @@ from ..core.bucketing import sorted_packed
 from ..interop import resolve_device, to_device
 from ..kernels.keypack import (cmp_from_packed, packed_cmp_lanes,
                                shortlex_max_values)
+from ..runtime import trace
 from .manifest import RunManifest
 from .merge import merge_runs
 from .validate import check_chunked, host, keys_digest
@@ -234,13 +235,15 @@ def _staged_chunks(pack, items, digest: bool, device: torch.device):
     sorts."""
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
-    def stage(item):
-        rows = pack(item)
-        return (_stage_chunk(rows, device, stream),
-                keys_digest(rows) if digest else None)
+    def stage(chunk_item):
+        chunk, item = chunk_item
+        with trace.span("ingest.stage", chunk=chunk):
+            rows = pack(item)
+            return (_stage_chunk(rows, device, stream),
+                    keys_digest(rows) if digest else None)
 
     return ((_take_chunk(staged, device), d)
-            for staged, d in _prefetch_map(stage, items))
+            for staged, d in _prefetch_map(stage, enumerate(items)))
 
 
 def _prefetch_map(fn, items):
@@ -252,10 +255,13 @@ def _prefetch_map(fn, items):
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(fn, items[0])
         for nxt in items[1:]:
-            cur = fut.result()
+            with trace.span("ingest.wait"):
+                cur = fut.result()
             fut = ex.submit(fn, nxt)
             yield cur
-        yield fut.result()
+        with trace.span("ingest.wait"):
+            last = fut.result()
+        yield last
 
 
 def _sort_chunks(chunks, *, algorithm, capacity, on_overflow, validate,
@@ -265,15 +271,18 @@ def _sort_chunks(chunks, *, algorithm, capacity, on_overflow, validate,
     runs, manifests = [], []
     for ci, (keys, digest) in enumerate(chunks):
         cap = capacity if capacity is not None else int(keys.shape[0])
-        run, man = _ingest_chunk(
-            keys, ci, digest, algorithm=algorithm, capacity=cap,
-            on_overflow=on_overflow, store=store, supervisor=supervisor,
-            need_manifest=validate != "off", device=device)
+        with trace.span("ingest.chunk_sort", chunk=ci):
+            run, man = _ingest_chunk(
+                keys, ci, digest, algorithm=algorithm, capacity=cap,
+                on_overflow=on_overflow, store=store, supervisor=supervisor,
+                need_manifest=validate != "off", device=device)
         runs.append(run)
         manifests.append(man)
     track = store is not None or validate != "off"
-    merged = _merged_run(runs, manifests=manifests if track else None,
-                         supervisor=supervisor, merge_engine=merge_engine)
+    with trace.span("ingest.merge"):
+        merged = _merged_run(runs, manifests=manifests if track else None,
+                             supervisor=supervisor,
+                             merge_engine=merge_engine)
     if validate != "off":
         check_chunked(runs, manifests, merged, mode=validate)
     return merged

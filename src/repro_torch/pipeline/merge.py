@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from ..kernels.keypack import packed_cmp_lanes
 from ..kernels.ops import merge_runs_lex, merge_sorted_lex
+from ..runtime import trace
 from .validate import ValidationError
 
 __all__ = ["merge_two", "merge_runs"]
@@ -91,10 +92,12 @@ def merge_runs(runs, engine: str = "auto", max_values=None, cmp_runs=None,
                 ext_rs, engine="kernel" if engine == "kway_kernel" else "auto",
                 n_cmp=n_cmp, block_size=block_size)
 
-        if supervisor is None:
-            merged = combine(ext)
-        else:
-            merged = supervisor.run_stage("streaming_combine", combine, ext)
+        with trace.span("merge.kway", runs=len(ext)):
+            if supervisor is None:
+                merged = combine(ext)
+            else:
+                merged = supervisor.run_stage("streaming_combine", combine,
+                                              ext)
         return tuple(merged[n_cmp:])
 
     def one_round(ext_rs):
@@ -106,8 +109,9 @@ def merge_runs(runs, engine: str = "auto", max_values=None, cmp_runs=None,
         return nxt
 
     while len(ext) > 1:
-        if supervisor is None:
-            ext = one_round(ext)
-        else:
-            ext = supervisor.run_stage("merge_round", one_round, ext)
+        with trace.span("merge.round", runs=len(ext)):
+            if supervisor is None:
+                ext = one_round(ext)
+            else:
+                ext = supervisor.run_stage("merge_round", one_round, ext)
     return tuple(ext[0][n_cmp:])

@@ -1,8 +1,8 @@
 """Runtime concerns of the port, testable on one host — the counterpart of
 ``repro.runtime``: elastic failure recovery, straggler detection, simulated
 failure injection, the sort pipeline's stage-level fault supervision
-(``sortfault``), and the seeded chaos soak of the mesh chunked sort
-(``chaos``)."""
+(``sortfault``), the seeded chaos soak of the mesh chunked sort
+(``chaos``), and the port's own spans and host-sync counter (``trace``)."""
 
 from .failure import (CapacityOverflow, DeviceFailure, ElasticSupervisor,
                       FailureInjector)

@@ -34,6 +34,7 @@ from ..models.config import ModelConfig
 from ..models.model import LM, decode_step, forward, init_cache
 from ..parallel.compat import get_mesh, set_mesh
 from ..parallel.sharding import Rules, whole
+from ..runtime import trace
 
 __all__ = ["Engine", "GenerationResult"]
 
@@ -81,21 +82,26 @@ class Engine:
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.sort_impl = sort_impl
+        self._step = None       # the decode step under way, for its span
 
     @property
     def device(self) -> torch.device:
         return self.params.device
 
     def _prefill(self, tokens, seq_mask):
-        logits, _, cache = forward(
-            self.cfg, self.params, {"tokens": tokens, "seq_mask": seq_mask},
-            self.rules, sort_impl=self.sort_impl, return_cache=True)
-        return whole(logits), cache
+        with trace.span("engine.prefill"):
+            logits, _, cache = forward(
+                self.cfg, self.params,
+                {"tokens": tokens, "seq_mask": seq_mask}, self.rules,
+                sort_impl=self.sort_impl, return_cache=True)
+            return whole(logits), cache
 
     def _decode(self, cache, tok, cur):
-        logits, cache = decode_step(self.cfg, self.params, cache, tok, cur,
-                                    self.rules, sort_impl=self.sort_impl)
-        return whole(logits)[:, 0], cache
+        with trace.span("engine.decode", step=self._step):
+            logits, cache = decode_step(self.cfg, self.params, cache, tok,
+                                        cur, self.rules,
+                                        sort_impl=self.sort_impl)
+            return whole(logits)[:, 0], cache
 
     @property
     def mesh(self):
@@ -132,17 +138,23 @@ class Engine:
             toks[i, :len(p)] = p
             mask[i, :len(p)] = 1
 
-        logits, cache = self._prefill(torch.from_numpy(toks).to(dev),
-                                      torch.from_numpy(mask).to(dev))
+        with trace.sync("engine.upload"):
+            toks_d = torch.from_numpy(toks).to(dev)
+        with trace.sync("engine.upload"):
+            mask_d = torch.from_numpy(mask).to(dev)
+        logits, cache = self._prefill(toks_d, mask_d)
         axes = init_cache(self.cfg, bsz, bound, abstract=True)[1]
-        cache = _pad_cache_to(cache, axes, self.max_seq)
+        with trace.span("engine.cache_grow"):
+            cache = _pad_cache_to(cache, axes, self.max_seq)
 
         # the next token comes from each prompt's *last real* logits row
-        last = torch.from_numpy(lens - 1).to(dev)
+        with trace.sync("engine.upload"):
+            last = torch.from_numpy(lens - 1).to(dev)
         cur_logits = logits[torch.arange(bsz, device=dev), last]
 
         out = [[] for _ in range(bsz)]
-        cur = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        with trace.sync("engine.upload"):
+            cur = torch.from_numpy(lens.astype(np.int32)).to(dev)
         gen = None if greedy else torch.Generator(device=dev).manual_seed(seed)
         done = np.zeros((bsz,), bool)
         for step in range(max_new):
@@ -151,7 +163,8 @@ class Engine:
             else:
                 probs = torch.softmax(cur_logits.float(), dim=-1)
                 nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
-            nxt_np = nxt.cpu().numpy()
+            with trace.sync("engine.readback"):
+                nxt_np = nxt.cpu().numpy()
             for i in range(bsz):
                 if not done[i]:
                     out[i].append(int(nxt_np[i]))
@@ -159,6 +172,8 @@ class Engine:
                         done[i] = True
             if done.all() or step == max_new - 1:
                 break
+            self._step = step + 1
             cur_logits, cache = self._decode(cache, nxt[:, None], cur)
             cur = cur + 1
+        self._step = None
         return out

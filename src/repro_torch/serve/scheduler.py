@@ -28,6 +28,7 @@ from ..data.bucketing import plan_buckets
 from ..interop import resolve_device
 from ..kernels.ops import sort_lex
 from ..pipeline.histogram import assign_buckets
+from ..runtime import trace
 from .engine import Engine, GenerationResult
 
 __all__ = ["Request", "BucketedScheduler"]
@@ -68,15 +69,18 @@ class BucketedScheduler:
             buckets[int(b)].append(r)
 
         results = []
-        for rs in buckets.values():
-            rs = self._order_by_length(rs, mesh=self.admission_mesh,
-                                       axis=self.admission_axis,
-                                       device=self.engine.device)
+        for b, rs in buckets.items():
+            with trace.span("serve.admission", bucket=b, n=len(rs)):
+                rs = self._order_by_length(rs, mesh=self.admission_mesh,
+                                           axis=self.admission_axis,
+                                           device=self.engine.device)
             for start in range(0, len(rs), self.batch_size):
                 chunk = rs[start:start + self.batch_size]
-                outs = self.engine.generate(
-                    [r.prompt for r in chunk],
-                    max_new=max(r.max_new for r in chunk))
+                with trace.span("serve.batch",
+                                requests=[r.request_id for r in chunk]):
+                    outs = self.engine.generate(
+                        [r.prompt for r in chunk],
+                        max_new=max(r.max_new for r in chunk))
                 for r, toks in zip(chunk, outs):
                     results.append(GenerationResult(r.request_id,
                                                     toks[:r.max_new]))
@@ -114,9 +118,14 @@ class BucketedScheduler:
             _, perm = distributed_sort_lex(list(lanes), mesh, axis=axis,
                                            vals=idx, device=dev)
         else:
-            _, perm = sort_lex([torch.from_numpy(l).to(dev) for l in lanes],
-                               vals=idx)
-        return [rs[int(j)] for j in perm[:n].cpu().numpy()]
+            on_dev = []
+            for lane in lanes:
+                with trace.sync("serve.admission_upload"):
+                    on_dev.append(torch.from_numpy(lane).to(dev))
+            _, perm = sort_lex(on_dev, vals=idx)
+        with trace.sync("serve.admission_readback"):
+            order = perm[:n].cpu().numpy()
+        return [rs[int(j)] for j in order]
 
     @staticmethod
     def padding_stats(requests: List[Request], bounds: Sequence[int]):
