@@ -20,9 +20,13 @@ It imports nothing of ``jax`` or ``repro``. Phases, each fatal on failure:
      merges the torch tier and the total-order contract), and time kernel,
      plain version and library call or torch tier. The bitonic kernel (B2)
      also runs at every power-of-two column count from 1 to its
-     shared-memory cap, and the merge kernel (B4) at every power-of-two
-     block, at offsets 0 and ``block``, both for 1, 2, 3, 4, 5, 8 and 9
-     lanes of each code and fill; B2 is timed at the run tier's chunk
+     shared-memory cap, and the network merge kernel (B4's counterpart of
+     the reference's, which no path runs) at every power-of-two block, at
+     offsets 0 and ``block``, both for 1, 2, 3, 4, 5, 8 and 9 lanes of each
+     code and fill; B4's merge-path rounds (blocksort's) run every round at
+     DS2 x 8's bucket tensor (each round timed) and on adversarial inputs,
+     and from runs of 1 to 1,024 columns at the same lane counts, codes and
+     fills; B2 is timed at the run tier's chunk
      blocks (4, 136, 512) beside DS2's local blocks. The distribute kernel
      (B3) runs at 0 to 1,048,577 words of 1 to 8 lanes, with ``n_valid``
      0, ``n - 777`` and ``n``, on words of spread, single and per-warp
@@ -207,7 +211,10 @@ PLAIN_ITERS = 3
 E2E_RUNS = 5
 # the kernels of sorted_packed and bucketed_sort_words
 MAIN_PATH = ("oets_rows_lex", "bitonic_rows_lex", "distribute_rows",
-             "merge_adjacent_lex")
+             "merge_pairs_lex")
+# kernels that no path runs: checked against their plain versions in phase
+# 2, their rows marked ``off_path`` and held at 0 launches on every path
+OFF_PATH = ("merge_adjacent_lex",)
 NARROW_N = 230_000
 # the CUDA functions behind each kernel's C entry point, as the profiler
 # names them
@@ -217,7 +224,9 @@ DEVICE_NAMES = {
     "bitonic_rows_lex": ("bitonic_window_kernel", "bitonic_regs_kernel"),
     # the kernel and the zeroing of its look-back scratch, in one call
     "distribute_rows": ("distribute_kernel", "Memset"),
-    "merge_adjacent_lex": ("merge_window_kernel", "merge_regs_kernel"),
+    # blocksort's merge-path rounds, and the network that no path runs
+    "merge_pairs_lex": ("merge_window_kernel",),
+    "merge_adjacent_lex": ("merge_net_window_kernel", "merge_net_regs_kernel"),
     "merge_runs_lex": ("runmerge_kernel",),
     "merge_path_starts": ("runmerge_starts_kernel",),
     "merge_runs_kway": ("kway_kernel",),
@@ -261,7 +270,7 @@ ADMISSION_QUEUES = (32, 200, 2000)
 DISPATCH_SEQ = 512
 DISPATCH_LOGIT_ATOL = 0.125
 # the kernels of the serving path: the admission sort and the MoE dispatch
-SERVE_PATH = ("oets_rows_lex", "bitonic_rows_lex", "merge_adjacent_lex")
+SERVE_PATH = ("oets_rows_lex", "bitonic_rows_lex", "merge_pairs_lex")
 # phase 6's smoke prompt lengths, and a 2-token prompt whose Mamba2 conv
 # window is the batch's padding rows (the reference's wrapped slice)
 SMOKE_PROMPTS = (3, 17, 9, 30, 2)
@@ -285,7 +294,7 @@ TRAIN_CKPT_EVERY = 4
 TRAIN_FAIL_AT = (6,)
 TRAIN_HYPER = dict(lr=1e-4, warmup=2, total_steps=TRAIN_STEPS,
                    sort_impl="pallas")
-TRAIN_PATH = ("bitonic_rows_lex", "merge_adjacent_lex")
+TRAIN_PATH = ("bitonic_rows_lex", "merge_pairs_lex")
 ZAMBA_ARCH = "zamba2-1.2b"
 ZAMBA_STEPS = 4
 ZAMBA_HYPER = dict(lr=1e-3, warmup=1, total_steps=ZAMBA_STEPS)
@@ -308,7 +317,7 @@ PLAN_MESH = ((2, 2), ("data", "model"))
 PLAN_ARCH = "granite-moe-1b-a400m"
 PLAN_DECODE_STEPS = 4
 PLAN_DECODE_SEQ = 1024
-PLAN_PATH = ("oets_rows_lex", "bitonic_rows_lex", "merge_adjacent_lex")
+PLAN_PATH = ("oets_rows_lex", "bitonic_rows_lex", "merge_pairs_lex")
 PLAN_SMOKE_SHAPE = (8, 64)
 # the plan is held in float32 at Granite's full width and depth, block by
 # block: in the sharded run each block and the head take the unsharded
@@ -358,7 +367,7 @@ PLAN_GEN_MAX_SEQ = 64
 # parameters a rank of the (2, 2) mesh on the card
 HW_MEMORY_RTOL = 0.1
 CONFORMANCE_KERNELS = ("oets_rows_lex", "bitonic_rows_lex", "distribute_rows",
-                       "merge_adjacent_lex", "merge_runs_lex",
+                       "merge_pairs_lex", "merge_runs_lex",
                        "merge_runs_kway")
 DRYRUN_ARCH = "granite-moe-1b-a400m"
 DRYRUN_MESHES = ((1, 1), (2, 2))
@@ -377,7 +386,7 @@ EXAMPLES = (
     ("serve_lm", (), ("oets_rows_lex",)),
     ("train_lm", ("--steps", "300", "--fail-at", "150"), ()),
     ("distributed_sort", (), ("oets_rows_lex", "bitonic_rows_lex",
-                              "merge_adjacent_lex", "merge_runs_lex")),
+                              "merge_pairs_lex", "merge_runs_lex")),
     ("moe_expert_parallel", (), ()),
 )
 CLI_SERVE_ARCHS = ("glm4-9b", "mamba2-370m")
@@ -499,7 +508,8 @@ class Report:
         self.rows = {k.name: {
             "name": k.name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k.source}",
-            "replaces": k.replaces, "launches": 0, "max_abs_err": 0}
+            "replaces": k.replaces, "launches": 0, "max_abs_err": 0,
+            "off_path": k.name in OFF_PATH}
             for k in KERNELS.values()}
         # phase 8's measured peak, beside phase 10's predicted one
         self.train_peak = None
@@ -673,6 +683,144 @@ def merge_sweep(device) -> int:
                       f"block: max_abs_err {err}")
                 if err:
                     raise AssertionError(f"merge_adjacent_lex sweep {n} "
+                                         f"{code_name} {fill}: kernel and "
+                                         "plain version differ")
+                worst = max(worst, err)
+    return worst
+
+
+def round_runs(run, cols):
+    """The run widths of blocksort's rounds over ``cols`` columns from sorted
+    ``run``-wide runs: ``run``, ``2 run``, ... below ``cols``."""
+    while run < cols:
+        yield run
+        run *= 2
+
+
+def merge_rounds(x, codes, run):
+    """Blocksort's rounds over stacked ``x`` from sorted ``run``-wide runs,
+    each round's kernel output against its plain version's (bits), one
+    launch a round. Returns the largest bit error, the sorted rows and the
+    number of rounds."""
+    import torch
+    from repro_torch.kernels import merge_kernel
+    k = merge_kernel.PAIRS_KERNEL
+    err, rounds = 0, 0
+    for r in round_runs(run, x.shape[2]):
+        before = k.launches
+        got = merge_kernel.merge_pairs_lex(x, torch.empty_like(x), codes,
+                                           run=r)
+        want = merge_kernel.merge_pairs_plain(x, codes, r)
+        torch.cuda.synchronize()
+        if k.launches != before + 1:
+            raise AssertionError(f"{k.name}: not one launch a round")
+        err = max(err, bits_err(got, want))
+        x, rounds = got, rounds + 1
+    return err, x, rounds
+
+
+def check_rounds(x, codes, block, label):
+    """:func:`merge_rounds` from sorted ``block``-wide blocks, printed and
+    fatal on a bit error. Returns the largest bit error and the sorted
+    rows."""
+    from repro_torch.kernels import merge_kernel
+    name = merge_kernel.PAIRS_KERNEL.name
+    err, x, rounds = merge_rounds(x, codes, block)
+    print(f"[kernels] {name} {label} {tuple(x.shape)}: {rounds} rounds, "
+          f"max_abs_err {err}")
+    if err:
+        raise AssertionError(f"{name} {label}: kernel and plain version "
+                             "differ")
+    return err, x
+
+
+def time_rounds(x, codes, block) -> dict:
+    """Each round of blocksort from the sorted blocks ``x``, timed on the
+    previous round's output (out of place): host-timed ms, device ms and the
+    bound, bytes once at 3.35 TB/s, a round; their sums over the rounds; the
+    plain rounds' time; the library's whole-row sort of the same blocks."""
+    import torch
+    from repro_torch.kernels import lex, merge_kernel
+    rounds, src = [], x
+    for run in round_runs(block, x.shape[2]):
+        dst = torch.empty_like(src)
+
+        def call(i, src=src, dst=dst, run=run):
+            return merge_kernel.merge_pairs_lex(src, dst, codes, run=run)
+        ms = cuda_time(call, KERNEL_ITERS)
+        dev = device_fields("merge_pairs_lex", call)
+        rounds.append({"run": run, "ms": ms, **dev,
+                       **bound(2 * x.numel() * 4, 0)})
+        src = dst
+
+    def plain(i):
+        z = x
+        for r in round_runs(block, x.shape[2]):
+            z = merge_kernel.merge_pairs_plain(z, codes, r)
+        return z
+
+    out = {key: sum(r[key] for r in rounds)
+           for key in ("ms", "device_ms", "bound_ms")}
+    out.update(rounds=rounds, bound_by="bytes",
+               device_ms_source=rounds[0]["device_ms_source"],
+               plain_ms=cuda_time(plain, PLAIN_ITERS, 1),
+               library_ms=cuda_time(
+                   lambda i: lib_sort(x, lex.order_keys(x, codes)),
+                   KERNEL_ITERS))
+    for r in rounds:
+        print(f"[kernels] merge_pairs_lex round of run {r['run']} "
+              f"{tuple(x.shape)}: ms {r['ms']:.5f}, device_ms "
+              f"{r['device_ms']:.5f}, bound_ms {r['bound_ms']:.5f}")
+    return out
+
+
+def sorted_runs(x, codes, run):
+    """Each ``run``-wide run of every row of stacked ``x`` sorted by the
+    library sort, the last one short where ``run`` does not divide the
+    row. (``merge_pairs_plain(x, codes, run // 2)`` would leave a last run
+    of at most ``run // 2`` columns unsorted.)"""
+    from repro_torch.kernels import lex
+    a, r, c = x.shape
+    full = c // run * run
+    out = x.clone()
+    if full:
+        z = x[:, :, :full].reshape(a, -1, run)
+        out[:, :, :full] = lib_sort(z, lex.order_keys(z, codes)).reshape(
+            a, r, full)
+    if c > full:
+        z = x[:, :, full:].contiguous()
+        out[:, :, full:] = lib_sort(z, lex.order_keys(z, codes))
+    return out
+
+
+def pairs_sweep(device) -> int:
+    """B4's merge-path rounds against their plain version for every lane
+    count of :data:`SWEEP_LANES`, each code and fill, from runs of 1, 4, 32,
+    128 and 1,024 columns of rows whose last run is cut short: tiles
+    narrower than a CTA's threads, and a last pair short or without a
+    partner. Returns the largest bit error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import adversarial, lex
+    rng = np.random.default_rng(5)
+    worst = 0
+    for n in SWEEP_LANES:
+        for code_name, code in (("u32", lex.U32), ("i32", lex.I32),
+                                ("f32", lex.F32)):
+            codes = [code] * n
+            for fill in adversarial.FILLS:
+                err = 0
+                for run0 in (1, 4, 32, 128, 1024):
+                    cols = 7 * run0 - run0 // 2
+                    x = sorted_runs(torch.from_numpy(adversarial.lane_bits(
+                        rng, (n, 3, cols), code, fill)).to(device), codes,
+                        run0)
+                    err = max(err, merge_rounds(x, codes, run0)[0])
+                print(f"[kernels] merge_pairs_lex sweep {n} lanes "
+                      f"{code_name} {fill}, runs from 1..1024: max_abs_err "
+                      f"{err}")
+                if err:
+                    raise AssertionError(f"merge_pairs_lex sweep {n} "
                                          f"{code_name} {fill}: kernel and "
                                          "plain version differ")
                 worst = max(worst, err)
@@ -1015,6 +1163,26 @@ def phase_kernels(report, device, ds2_keys, chunk500_keys, chunk3000_keys):
                    xm, U4, block=block),
                **bound(2 * a * r * c * 4,
                        r * (c // 2) * (block.bit_length()) * a))
+
+    # B4's merge-path rounds at DS2 x 8 in one call: DS2's words eight times
+    # over, bucketed at capacity, blocks sorted, then every round
+    k = merge_kernel.PAIRS_KERNEL
+    x8 = stacked_buckets(np.tile(ds2_keys, (8, 1)), device, blocks)
+    block8, nb8 = sizes["block"], sizes["nb"]
+    x8 = bitonic_kernel.bitonic_rows_lex(x8.view(4, -1, block8), U4).view(
+        x8.shape).contiguous()
+    err, got = check_rounds(x8, U4, block8, f"DS2 x 8, block {block8}")
+    check_sorted(k.name, x8, got, U4)
+    for kind in ("sentinel", "dup_heavy", "float"):
+        xa, ca = adversarial(kind, (5 if kind == "float" else 4, 6,
+                                    11 * block8), rng, device)
+        xa = sorted_runs(xa, ca, block8)
+        e, got = check_rounds(xa, ca, block8, kind)
+        check_sorted(k.name, xa, got, ca)
+        err = max(err, e)
+    err = max(err, pairs_sweep(device))
+    report.add(k, err, shape=list(x8.shape), block=block8, blocks=nb8,
+               **time_rounds(x8, U4, block8))
 
     # B3 at DS2: the packed words, plus words with interior NUL bytes and
     # 0xFF bytes and a padded tail
@@ -1537,7 +1705,7 @@ def phase_run_tier(report, device, ds2_words, big_words):
         if not ok:
             raise AssertionError(f"{name}: not the shortlex order")
         for kname in ("distribute_rows", "bitonic_rows_lex",
-                      "merge_adjacent_lex") + merge_kernels:
+                      "merge_pairs_lex") + merge_kernels:
             if counts[kname] == 0:
                 raise AssertionError(f"{name}: {kname} never launched")
         for kname, c in counts.items():
@@ -1935,7 +2103,7 @@ def phase_partition_and_repairs(report, device, ds2_words, big_words):
                              "to the packed engine")
     (parts, sorted_narrow, packed_int, packed_float), counts = \
         launch_counts(path)
-    for kname in ("partition_rows", "bitonic_rows_lex", "merge_adjacent_lex"):
+    for kname in ("partition_rows", "bitonic_rows_lex", "merge_pairs_lex"):
         if counts[kname] == 0:
             raise AssertionError(f"partition and repaired sorts: {kname} "
                                  "never launched")
@@ -2372,7 +2540,7 @@ def phase_mesh(report, device, ds2_words, big_words):
                               "collectives staged through the host)")
         for kname, c in total.items():
             report.rows[kname]["launches"] += c
-        for kname in ("bitonic_rows_lex", "merge_adjacent_lex",
+        for kname in ("bitonic_rows_lex", "merge_pairs_lex",
                       "merge_runs_lex"):
             if total[kname] == 0:
                 raise AssertionError(f"the gloo ranks never launched "
@@ -4270,7 +4438,10 @@ def main() -> int:
     phase_launch(report, device)
     phase_examples(report, device)
     for name, row in report.rows.items():
-        if row["launches"] == 0:
+        if row["off_path"] and row["launches"]:
+            raise AssertionError(f"{name} is off every path, yet a path "
+                                 f"launched it {row['launches']} times")
+        if not row["off_path"] and row["launches"] == 0:
             raise AssertionError(f"{name} was never launched on its path")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())

@@ -4,20 +4,25 @@
   1. split each row into ``nb`` blocks of ``block_size`` columns,
   2. sort every block locally with the bitonic (or OETS) row kernel — one
      launch over all blocks of all rows,
-  3. run ``nb`` alternating even/odd rounds of the merge kernel — odd-even
-     transposition sort lifted from columns to blocks. After ``nb`` rounds
-     every row is sorted (the 0-1 principle applied block-wise).
+  3. merge runs pairwise: round ``k`` merges every pair of adjacent sorted
+     runs of ``block_size * 2^k`` columns by merge path, one launch out of
+     place between two buffers. After ``ceil(log2 nb)`` rounds every row is
+     sorted.
 
-The reference splices an odd round's untouched edge blocks back by
-concatenation (``repro/core/blocksort.py:90-112``); the port launches the
-merge kernel in place on the same tensor at a column offset, so a round
-writes only the windows it merges.
+The reference runs ``nb`` alternating even/odd rounds of its block-pair
+merge network instead (odd-even transposition lifted from columns to
+blocks, ``repro/core/blocksort.py:90-112``); each round reads and writes
+the whole tensor, so the port's rounds make ``ceil(log2 nb)`` passes where
+the reference's make ``nb``. The merge is stable and compares every lane: a
+tuple sort whose tuples are all distinct or bit-equal has one answer, so
+the two agree bit for bit there; float ties that compare equal but differ
+in bits (``-0.0`` and ``+0.0``, NaN payloads) may fall in another order.
 
 The block cap comes from the H100's shared memory, not the TPU's VMEM: the
-merge kernel holds a pair's whole ``2B`` window of every array in shared
-memory, ``2 B x arrays x 4 B <= 227 KB``, so ``B <= 4096`` for the main
-path's four word lanes. The block size changes no result: a tuple sort
-whose tuples are all distinct or bit-equal has one answer.
+network merge kernel holds a pair's whole ``2B`` window of every array in
+shared memory, ``2 B x arrays x 4 B <= 227 KB``, so ``B <= 4096`` for the
+main path's four word lanes; the cap stays the block's bound, and the block
+size changes no result.
 """
 
 from __future__ import annotations
@@ -26,16 +31,17 @@ import torch
 
 from ..kernels.bitonic_kernel import bitonic_rows_lex
 from ..kernels.lex import as_bits, dtype_code
-from ..kernels.merge_kernel import max_merge_block, merge_adjacent_lex
+from ..kernels.merge_kernel import max_merge_block, merge_pairs_lex
 from ..kernels.oets_kernel import oets_rows_lex
 from ..kernels.ops import _as_rows, _next_pow2, _pad_stack, _unstack
+from ..runtime import trace
 
 __all__ = ["block_sort", "block_sort_kv", "block_sort_lex",
            "block_sort_views", "default_block_size"]
 
 _MIN_BLOCK = 128
 _DEFAULT_MIN_BLOCK = 512
-_TARGET_BLOCKS = 16       # merge rounds = number of blocks; keep that small
+_TARGET_BLOCKS = 16       # blocks a row; merge rounds = ceil(log2 blocks)
 
 
 def default_block_size(n: int, kv: bool = False,
@@ -63,15 +69,20 @@ def _validate_block(block_size, n: int, n_arrays: int) -> int:
     return b
 
 
-def _merge_rounds(x: torch.Tensor, codes, nb: int, block: int) -> None:
-    """``nb`` alternating even/odd rounds of block-pair merges over the
-    ``(A, R, nb * block)`` tensor ``x``, in place."""
-    for r in range(nb):
-        parity = r % 2
-        npairs = (nb - parity) // 2
-        if npairs:
-            merge_adjacent_lex(x, codes, block=block, lo=parity * block,
-                               npairs=npairs)
+def _merge_rounds(x: torch.Tensor, codes, nb: int, block: int) -> torch.Tensor:
+    """``ceil(log2 nb)`` rounds of merge-path merges of adjacent runs over
+    the ``(A, R, nb * block)`` tensor ``x`` of sorted blocks, the run width
+    doubling from ``block``, between ``x`` and one more buffer; returns the
+    buffer that holds the sorted rows."""
+    y = torch.empty_like(x)
+    run, rounds = block, 0
+    while run < nb * block:
+        merge_pairs_lex(x, y, codes, run=run)
+        x, y = y, x
+        run *= 2
+        rounds += 1
+    trace.count("blocksort.rounds", rounds)
+    return x
 
 
 def block_sort_views(views, codes, *, block_size: int | None = None,
@@ -89,7 +100,7 @@ def block_sort_views(views, codes, *, block_size: int | None = None,
     local = bitonic_rows_lex if local_algorithm == "bitonic" else oets_rows_lex
     local(x.view(len(views), rows * nb, b), codes)
     if nb > 1:
-        _merge_rounds(x, codes, nb, b)
+        x = _merge_rounds(x, codes, nb, b)
     return x[:, :, :n]
 
 

@@ -125,22 +125,33 @@ __device__ __forceinline__ bool tile_less(const uint32_t* key, int stride,
   }
 }
 
-// The co-rank of output d of the merge of the tile's runs a = [a0, a0 + ca)
-// and b = [b0, b0 + cb): a binary search for how many of the first d
-// outputs come from a, b taken only where b < a strictly.
-template <int NC>
-__device__ __forceinline__ int tile_corank(const uint32_t* key, int stride,
-                                           int n_cmp, int a0, int ca, int b0,
-                                           int cb, int d) {
+// The co-rank of output d of the merge of a run a of ca elements and a run
+// b of cb: a binary search for how many of the first d outputs come from a,
+// b taken only where b_less_a(j, i), b[j] < a[i] strictly, holds.
+template <class BLessA>
+__device__ __forceinline__ int corank_by(BLessA b_less_a, int ca, int cb,
+                                         int d) {
   int lo = max(0, d - cb), hi = min(d, ca);
   while (lo < hi) {
     int mid = (lo + hi) >> 1;
-    if (tile_less<NC>(key, stride, n_cmp, b0 + d - 1 - mid, a0 + mid))
+    if (b_less_a(d - 1 - mid, mid))
       hi = mid;
     else
       lo = mid + 1;
   }
   return lo;
+}
+
+// corank_by over the tile's runs a = [a0, a0 + ca) and b = [b0, b0 + cb)
+template <int NC>
+__device__ __forceinline__ int tile_corank(const uint32_t* key, int stride,
+                                           int n_cmp, int a0, int ca, int b0,
+                                           int cb, int d) {
+  return corank_by(
+      [&](int j, int i) {
+        return tile_less<NC>(key, stride, n_cmp, b0 + j, a0 + i);
+      },
+      ca, cb, d);
 }
 
 // Stage `lanes` lanes of two segments into `dst` (lane-major, lane stride

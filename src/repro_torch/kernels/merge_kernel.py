@@ -1,18 +1,29 @@
-"""B4: merge of adjacent sorted blocks — blocksort's cross-block round — as
-a hand-written CUDA kernel (``csrc/merge.cu``) and its plain PyTorch
-version.
+"""B4: blocksort's cross-block merge as hand-written CUDA kernels
+(``csrc/merge.cu``) and their plain PyTorch versions, in two designs.
 
-Both merge, in every row of a stacked ``(A, R, N)`` int32 lane tensor (see
-``kernels/lex.py``), the ``npairs`` pairs of sorted ``block``-wide blocks
-that start at column ``lo``: a reflected compare-exchange (partner
-``2B-1-i``) splits each pair into two bitonic halves, then ``log2 B`` XOR
-steps finish them, the low half left — ``repro.kernels.merge_kernel``'s
-``_merge_network``, so all three agree bit for bit. The port merges in place
-at an offset where the reference slices and concatenates (``core/blocksort``).
-The kernel runs the near stages of the network in registers (inside a
-thread, or across a group of a warp's lanes by shuffles) and the far ones
-through shared memory, which holds the whole pair window and so sets
-:func:`max_merge_block`.
+* **Merge-path rounds** (:func:`merge_pairs_lex`), blocksort's: one launch
+  merges every pair of adjacent sorted ``run``-wide runs of every row of a
+  stacked ``(A, R, N)`` int32 lane tensor (see ``kernels/lex.py``) into a
+  second tensor; a last run with no partner is copied. Every lane compares,
+  ties take the left run first: the stable merge, which the plain version
+  (:func:`merge_pairs_plain`) gets as a stable sort of each pair window by
+  its order keys. Rounds at run ``B, 2B, 4B, ...`` sort a row of ``nb``
+  sorted blocks in ``ceil(log2 nb)`` passes (``core/blocksort``), where the
+  reference's odd-even block rounds take ``nb``.
+* **The reflected network** (:func:`merge_adjacent_lex`), the counterpart of
+  the reference's ``merge_adjacent_*_pallas``: in every row, the ``npairs``
+  pairs of sorted ``block``-wide blocks that start at column ``lo`` merge in
+  place by a reflected compare-exchange (partner ``2B-1-i``) and ``log2 B``
+  XOR steps, the low half left — ``repro.kernels.merge_kernel``'s
+  ``_merge_network``, so all three agree bit for bit. The kernel runs the
+  near stages of the network in registers (inside a thread, or across a
+  group of a warp's lanes by shuffles) and the far ones through shared
+  memory, which holds the whole pair window and so sets
+  :func:`max_merge_block`. No path of the port launches it.
+
+The two agree bit for bit wherever tuples are distinct or bit-equal; float
+ties that compare equal but differ in bits (``-0.0`` and ``+0.0``, NaN
+payloads) may fall in another order.
 """
 
 from __future__ import annotations
@@ -26,13 +37,21 @@ from ._build import SMEM_LIMIT, Kernel, check_stacked
 from .bitonic_kernel import xor_stage
 from .lex import lex_gt_keys, order_keys
 
-__all__ = ["KERNEL", "merge_adjacent_lex", "merge_network_plain",
+__all__ = ["KERNEL", "PAIRS_KERNEL", "merge_adjacent_lex",
+           "merge_network_plain", "merge_pairs_lex", "merge_pairs_plain",
            "max_merge_block"]
 
 KERNEL = Kernel("merge_adjacent_lex", "merge.cu", "merge_adjacent_lex",
                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint],
                 replaces="src/repro/kernels/merge_kernel.py:74")
+# blocksort's rounds, which the reference runs as nb odd-even rounds of the
+# network kernel
+PAIRS_KERNEL = Kernel("merge_pairs_lex", "merge.cu", "merge_pairs_lex",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_uint],
+                      replaces="src/repro/core/blocksort.py:90")
 
 
 def max_merge_block(n_arrays: int) -> int:
@@ -91,3 +110,64 @@ def merge_adjacent_lex(x: torch.Tensor, codes: Sequence[int], *, block: int,
                          "shared memory of a block")
     KERNEL(x.device, x.data_ptr(), n_arr, rows, ncols, lo, npairs, block, mask)
     return x
+
+
+def _stable_windows(x: torch.Tensor, codes: Sequence[int],
+                    width: int) -> torch.Tensor:
+    """Each ``width``-wide window of every row of ``(A, R, k * width)``
+    sorted stably in the lex order of its order keys: a chain of stable
+    sorts, the least significant lane first."""
+    n_arr = x.shape[0]
+    z = x.reshape(n_arr, -1, width)
+    keys = order_keys(z, codes)
+    perm = None
+    for a in reversed(range(n_arr)):
+        k = keys[a] if perm is None else keys[a].gather(-1, perm)
+        idx = torch.sort(k, dim=-1, stable=True).indices
+        perm = idx if perm is None else perm.gather(-1, idx)
+    return z.gather(-1, perm.expand(n_arr, -1, -1)).reshape(x.shape)
+
+
+def merge_pairs_plain(x: torch.Tensor, codes: Sequence[int],
+                      run: int) -> torch.Tensor:
+    """The plain version of one round over ``(A, R, N)``: every pair window
+    of ``2 * run`` columns (the last cut at ``N``) sorted stably by its
+    lanes' order keys — for two sorted runs, the stable merge, the left
+    run first on ties. Returns a new tensor."""
+    ncols = x.shape[2]
+    width = 2 * run
+    full = ncols // width * width
+    out = x.clone()
+    if full:
+        out[:, :, :full] = _stable_windows(x[:, :, :full], codes, width)
+    if ncols - full > run:
+        out[:, :, full:] = _stable_windows(x[:, :, full:], codes, ncols - full)
+    return out
+
+
+def merge_pairs_lex(src: torch.Tensor, dst: torch.Tensor,
+                    codes: Sequence[int], *, run: int) -> torch.Tensor:
+    """Merge every pair of adjacent sorted ``run``-wide runs (``run`` a
+    power of two) of every row of the stacked ``(A, R, N)`` int32 lane
+    tensor ``src`` into ``dst``, a tensor like it that shares no memory
+    with it; a last run with no partner is copied. Returns ``dst``. A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel, once."""
+    mask = check_stacked(src, codes, "merge_pairs_lex")
+    if (dst.shape != src.shape or dst.dtype != src.dtype
+            or dst.device != src.device or not dst.is_contiguous()):
+        raise ValueError("merge_pairs_lex: dst must be a contiguous tensor "
+                         "of src's shape, dtype and device")
+    if run < 1 or run & (run - 1):
+        raise ValueError("merge_pairs_lex: run must be a power of two")
+    nbytes = src.numel() * 4
+    if nbytes == 0:
+        return dst
+    if abs(src.data_ptr() - dst.data_ptr()) < nbytes:
+        raise ValueError("merge_pairs_lex: src and dst overlap; the merge "
+                         "runs out of place")
+    if src.device.type == "cpu":
+        return dst.copy_(merge_pairs_plain(src, codes, run))
+    n_arr, rows, ncols = src.shape
+    PAIRS_KERNEL(src.device, src.data_ptr(), dst.data_ptr(), n_arr, rows,
+                 ncols, run, mask)
+    return dst

@@ -161,6 +161,7 @@ def test_cpu_path_launches_no_kernel():
     assert before == {n: k.launches for n, k in KERNELS.items()}
     assert set(KERNELS) == {"oets_rows_lex", "bitonic_rows_lex",
                             "distribute_rows", "merge_adjacent_lex",
+                            "merge_pairs_lex",
                             "merge_runs_lex", "merge_path_starts",
                             "merge_runs_kway", "kway_split", "kway_gather",
                             "partition_rows"}

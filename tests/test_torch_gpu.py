@@ -100,6 +100,51 @@ def test_merge_kernel_refuses_a_window_past_shared_memory(cuda):
         merge_kernel.merge_adjacent_lex(x, [lex.U32] * 4, block=8192)
 
 
+@pytest.mark.parametrize("shape,block,code,fill", [
+    pytest.param((4, 17, 389_120), 4096, lex.U32, "sentinel", id="ds2x8"),
+    pytest.param((4, 17, 233_472), 4096, lex.U32, "dup_heavy", id="chunk"),
+    pytest.param((2, 1, 32 * 8192), 8192, lex.I32, "dup_heavy",
+                 id="granite_dispatch_kv"),
+    pytest.param((9, 3, 11 * 1024), 1024, lex.U32, "sentinel", id="nine"),
+    # DS2's shortlex tuple in one row: a 48 KB tile, the most a block
+    # takes without opting in
+    pytest.param((6, 1, 57 * 4096), 4096, lex.U32, "sentinel", id="six"),
+    pytest.param((3, 5, 13 * 2048), 2048, lex.F32, "nan", id="float"),
+    pytest.param((3, 4, 7 * 1024 - 300), 1024, lex.U32, "dup_heavy",
+                 id="short_tail")])
+def test_merge_pairs_kernel_matches_plain(cuda, shape, block, code, fill):
+    """Every round of blocksort at the word sort's bucket tensors (DS2 x 8
+    in one call, a chunk of the chunked sort), a MoE dispatch sort's kv
+    pair, six and nine lanes, float lanes, and rows whose last run is
+    short: one launch a round, the plain version's bits (the stable merge:
+    float ties too)."""
+    rng = np.random.default_rng(list(shape))
+    codes = [code] * shape[0]
+    x = torch.from_numpy(adversarial.lane_bits(rng, shape, code, fill))
+    x = merge_kernel.merge_pairs_plain(x.to(cuda), codes, block // 2)
+    run = block
+    while run < shape[2]:
+        y = torch.empty_like(x)
+        before = merge_kernel.PAIRS_KERNEL.launches
+        merge_kernel.merge_pairs_lex(x, y, codes, run=run)
+        assert merge_kernel.PAIRS_KERNEL.launches == before + 1
+        assert torch.equal(y, merge_kernel.merge_pairs_plain(x, codes, run)), \
+            run
+        x, run = y, run * 2
+
+
+def test_merge_pairs_kernel_stays_in_bounds_on_unsorted_runs(cuda):
+    """Runs that break the contract (unsorted) give co-ranks out of order;
+    the kernel still reads and writes only inside its tensors."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(adversarial.lane_bits(
+        rng, (4, 17, 94 * 4096), lex.U32, "sentinel")).to(cuda)
+    y = torch.empty_like(x)
+    for run in (4096, 8192, 65536):
+        merge_kernel.merge_pairs_lex(x, y, [lex.U32] * 4, run=run)
+        torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("n,lanes,pad", [(1, 1, 0), (1023, 4, 0),
                                          (1025, 4, 3), (300_001, 4, 1000),
                                          (70_000, 8, 0)])

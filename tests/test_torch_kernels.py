@@ -5,6 +5,7 @@ strict compare — so the bits agree exactly, NaN and ±0.0 ties included.
 The CUDA kernels themselves are held against these plain versions on the
 card (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
 
+import math
 import shutil
 
 import jax.numpy as jnp
@@ -18,8 +19,11 @@ from repro.kernels.merge_kernel import merge_adjacent_lex_pallas
 from repro.kernels.oets_kernel import oets_rows_lex_pallas
 from repro.testing.generators import fill_elements, make_words
 from repro.core.packing import pack_words
-from repro_torch.kernels import (bitonic_kernel, distribute_kernel, lex,
-                                 merge_kernel, oets_kernel)
+from repro_torch.kernels import (adversarial, bitonic_kernel,
+                                 distribute_kernel, lex, merge_kernel,
+                                 oets_kernel)
+from repro_torch.kernels.lex import from_bits
+from repro_torch.pipeline.validate import check_lanes_sorted
 
 _NP_CODE = {np.dtype(np.uint32): lex.U32, np.dtype(np.int32): lex.I32,
             np.dtype(np.float32): lex.F32}
@@ -117,6 +121,111 @@ def test_merge_at_an_offset_touches_only_its_pairs():
     assert torch.equal(x[..., block:3 * block], mid)
 
 
+# blocksort's merge-path rounds: lane codes at 1, 2, 4 and 9 lanes
+_PAIR_CODES = {1: [lex.I32], 2: [lex.U32, lex.I32], 4: [lex.U32] * 4,
+               9: [lex.U32, lex.I32] * 4 + [lex.U32]}
+
+
+def _pair_input(seed, codes, rows, ncols, run):
+    """Rows of ``run``-wide sorted runs: duplicate-heavy lanes (ties across
+    runs, on every lane), a fifth of the words the code's sentinel, row 0
+    wholly sentinel."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([adversarial.lane_bits(rng, (rows, ncols), c, "dup_heavy")
+                  for c in codes])
+    pad = rng.random((rows, ncols)) < 0.2
+    for a, c in enumerate(codes):
+        x[a][pad] = lex.sentinel_bits(c)
+        x[a, 0] = lex.sentinel_bits(c)
+    return _stable_rounds_oracle(torch.from_numpy(x), codes, run // 2)
+
+
+def _stable_rounds_oracle(x, codes, run):
+    """numpy's stable ``lexsort`` of every ``2 run``-wide window of every
+    row (the last cut at the row's end) over the lanes' order keys."""
+    keys = lex.order_keys(x, codes).numpy()
+    out = x.numpy().copy()
+    width = 2 * run
+    for r in range(x.shape[1]):
+        for lo in range(0, x.shape[2], width):
+            hi = min(lo + width, x.shape[2])
+            perm = np.lexsort(keys[::-1, r, lo:hi])
+            out[:, r, lo:hi] = out[:, r, lo:hi][:, perm]
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("lanes", sorted(_PAIR_CODES))
+@pytest.mark.parametrize("nb", [2, 3, 5, 7, 8])
+def test_merge_pairs_plain_is_the_stable_merge(nb, lanes):
+    """Every round from runs of 16 up, the last run 5 short: the plain
+    merge is numpy's stable lexsort of each pair window, a last run with no
+    partner copied; after ``ceil(log2 nb)`` rounds each row is sorted."""
+    codes = _PAIR_CODES[lanes]
+    run = 16
+    x = _pair_input(nb * 10 + lanes, codes, 3, nb * run - 5, run)
+    rounds = 0
+    while run < x.shape[2]:
+        y = torch.empty_like(x)
+        got = merge_kernel.merge_pairs_lex(x, y, codes, run=run)
+        assert got is y
+        assert torch.equal(y, _stable_rounds_oracle(x, codes, run))
+        x, run, rounds = y, run * 2, rounds + 1
+    assert rounds == math.ceil(math.log2(nb))
+    keys = lex.order_keys(x, codes).numpy()
+    for r in range(x.shape[1]):
+        perm = np.lexsort(keys[::-1, r])
+        assert np.array_equal(perm, np.arange(x.shape[2]))
+
+
+def test_merge_pairs_plain_float_ties_follow_the_order_bits():
+    """Float lanes of NaN payloads, -0.0 and +0.0, and an int32 tie lane:
+    a round keeps each window's tuples bit for bit and sorts them under the
+    order bits."""
+    codes = [lex.F32, lex.I32, lex.F32]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(np.stack([
+        adversarial.lane_bits(rng, (4, 5 * 64), c, "nan") for c in codes]))
+    x = merge_kernel.merge_pairs_plain(x, codes, 32)      # sorted 64-runs
+    for run in (64, 128, 256):
+        y = merge_kernel.merge_pairs_lex(x, torch.empty_like(x), codes,
+                                         run=run)
+        for r in range(x.shape[1]):
+            for lo in range(0, x.shape[2], 2 * run):
+                win = slice(lo, lo + 2 * run)
+                assert sorted(map(tuple, x[:, r, win].T.tolist())) == \
+                    sorted(map(tuple, y[:, r, win].T.tolist()))
+                check_lanes_sorted([from_bits(y[a, r, win], _F32_OR_I32[c])
+                                    for a, c in enumerate(codes)],
+                                   what="merge_pairs_lex")
+        x = y
+
+
+_F32_OR_I32 = {lex.F32: torch.float32, lex.I32: torch.int32}
+
+
+@pytest.mark.parametrize("nb", [2, 3, 5, 7, 8, 40])
+def test_blocksort_makes_ceil_log2_nb_rounds(nb):
+    """``blocksort.rounds`` counts ``ceil(log2 nb)`` merge rounds a call,
+    and the rows agree with ``numpy.lexsort``: 128-column blocks, the last
+    one partial, three rows of a kv pair."""
+    from repro_torch.core.blocksort import block_sort_kv
+    from repro_torch.runtime import trace
+    rng = np.random.default_rng(nb)
+    n = nb * 128 - 5
+    k = rng.integers(-3, 3, (3, n)).astype(np.int32)
+    v = rng.integers(0, 1 << 32, (3, n), dtype=np.uint64).astype(np.uint32)
+    trace.clear()
+    with trace.recording():
+        gk, gv = block_sort_kv(torch.from_numpy(k), torch.from_numpy(v),
+                               block_size=128)
+    assert trace.counters() == {"blocksort.rounds": math.ceil(math.log2(nb))}
+    trace.clear()
+    for r in range(3):
+        perm = np.lexsort((v[r], k[r]))
+        np.testing.assert_array_equal(gk[r].numpy(), k[r][perm])
+        np.testing.assert_array_equal(gv[r].numpy(), v[r][perm])
+
+
 def _distribute_words(kind: str):
     rng = np.random.default_rng(7)
     if kind == "random":
@@ -175,20 +284,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         x = x.to("meta")
     for call in (lambda: oets_kernel.oets_rows_lex(x, codes),
                  lambda: bitonic_kernel.bitonic_rows_lex(x, codes),
-                 lambda: merge_kernel.merge_adjacent_lex(x, codes, block=64)):
+                 lambda: merge_kernel.merge_adjacent_lex(x, codes, block=64),
+                 lambda: merge_kernel.merge_pairs_lex(
+                     x, torch.empty_like(x), codes, run=64)):
         with pytest.raises(ValueError):
             call()
 
 
 def test_no_kernel_launch_on_the_cpu():
     """A CPU tensor runs the plain version: the launch counters stay put."""
-    before = {k.name: k.launches for k in (oets_kernel.KERNEL,
-                                           bitonic_kernel.KERNEL)}
+    kernels = (oets_kernel.KERNEL, bitonic_kernel.KERNEL,
+               merge_kernel.PAIRS_KERNEL)
+    before = {k.name: k.launches for k in kernels}
     x, codes = _stack(_lanes("words_u32x4", 2, 128))
     oets_kernel.oets_rows_lex(x.clone(), codes)
     bitonic_kernel.bitonic_rows_lex(x.clone(), codes)
-    assert before == {k.name: k.launches for k in (oets_kernel.KERNEL,
-                                                   bitonic_kernel.KERNEL)}
+    merge_kernel.merge_pairs_lex(x, torch.empty_like(x), codes, run=64)
+    assert before == {k.name: k.launches for k in kernels}
 
 
 def test_merge_block_cap_from_shared_memory():

@@ -89,10 +89,12 @@ def test_sorted_packed_records_its_stages_and_syncs():
                      "sort.bucket", "sort.compact", "sync.sort.compact",
                      "sync.sort.compact", "sort.pack",
                      "sync.sort.overflow_check"]
+    # the largest bucket's 1,365 words sort in 3 blocks of 512: blocksort
+    # merges them in 2 rounds
     assert trace.counters() == {
         "host_syncs": 5, "host_syncs.sort.upload": 1,
         "host_syncs.sort.size": 1, "host_syncs.sort.compact": 2,
-        "host_syncs.sort.overflow_check": 1}
+        "host_syncs.sort.overflow_check": 1, "blocksort.rounds": 2}
     spans = trace.spans()
     for s in spans:
         assert s["start_ns"] <= s["end_ns"]
